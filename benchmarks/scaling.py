@@ -1,10 +1,10 @@
 """Scaling-efficiency harness: rays/s vs mesh size (BASELINE.md: ≥0.9 linear
-scaling 1 chip → pod).
+scaling from one device to many).
 
-On a pod slice this measures true multi-chip scaling over ICI; on a
-single-chip/CPU box it still validates the sharded program end-to-end by
+On a multi-GPU host this measures multi-card scaling (collectives over
+NVLink); on a CPU box it still validates the sharded program end-to-end by
 shrinking the mesh over virtual devices (numbers then reflect host
-parallelism, not ICI — labeled accordingly).
+parallelism only — labeled accordingly by the recorded platform).
 
 Usage:
     python benchmarks/scaling.py [--width 1920 --height 1080 --spp 64]
@@ -30,6 +30,10 @@ def main() -> None:
     args = p.parse_args()
 
     import jax
+
+    from spira_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import spira_tpu as st
     from spira_tpu.parallel.distributed import initialize
@@ -83,8 +87,9 @@ def main() -> None:
             file=sys.stderr,
         )
 
-    print(json.dumps({"backend": backend, "engine": args.engine,
-                      "results": results}))
+    print(json.dumps({"platform": backend,
+                      "device_kind": jax.devices()[0].device_kind,
+                      "engine": args.engine, "results": results}))
 
 
 if __name__ == "__main__":

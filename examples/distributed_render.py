@@ -1,10 +1,10 @@
-"""Tile/spp-sharded rendering over a device mesh; run unchanged on one chip,
-a pod slice, or (for dry runs) virtual CPU devices:
+"""Tile/spp-sharded rendering over a device mesh; run unchanged on one GPU,
+several GPUs of one host, or (for dry runs) virtual CPU devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python examples/distributed_render.py
 
-On multi-host pods, launch one process per host; `initialize()` wires up the
+On several hosts, launch one process per host; `initialize()` wires up the
 cluster and the same code renders the globally-sharded frame.
 """
 

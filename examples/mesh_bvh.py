@@ -19,9 +19,7 @@ import spira_tpu as st
 obj = sys.argv[1] if len(sys.argv) > 1 and sys.argv[1].endswith(".obj") else None
 out = sys.argv[-1] if sys.argv[-1].endswith(".png") else "mesh_render.png"
 
-from spira_tpu.accel.pairs import attach_packed
-
-scene = attach_packed(st.create_mesh_scene(obj_path=obj))
+scene = st.create_mesh_scene(obj_path=obj)
 camera = st.make_camera(
     lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0), vfov=50.0,
     aspect_ratio=640 / 360,

@@ -100,14 +100,11 @@ inline float caxis(const Vec3 &c, int ax) {
 }
 
 // ``row`` > 0 prices children in LEAF ROWS (ceil(count/row)) instead of
-// primitives.  Motivation (round-5, v5e): the packet megakernel's leaf
-// visit costs one fixed row of ``row`` triangle tests regardless of how
-// full the leaf is (rows_per_visit is static over the whole tree), so the
-// per-primitive SAH overestimates the cost of full leaves and builds
-// under-filled ones (measured bunny mean fill 5.75/8 -> 12,680 leaves vs
-// the 9,120 minimum).  Row-granular costs make fuller leaves, fewer
-// leaves, fewer packet visits — the one lever class that has ever paid on
-// this kernel (work removal).
+// primitives.  A traversal whose leaf visit costs one fixed row of ``row``
+// triangle tests regardless of how full the leaf is makes the
+// per-primitive SAH overestimate the cost of full leaves and build
+// under-filled ones (bunny mean fill 5.75/8 -> 12,680 leaves vs the 9,120
+// minimum).  Row-granular costs make fuller leaves and fewer leaf visits.
 void build(BuildState &st, int leaf_size, int row = 0) {
   auto rowsf = [row](int32_t c) {
     return row > 0 ? static_cast<float>((c + row - 1) / row)

@@ -1,4 +1,4 @@
-"""spira_tpu — a TPU-native differentiable spectral path tracer.
+"""spira_tpu — a differentiable spectral path tracer in JAX.
 
 Built from scratch in JAX/Pallas/pjit with the capabilities of the SPIRA
 Julia/Metal renderer (jenkinsm13/julia-spira); see SURVEY.md for the

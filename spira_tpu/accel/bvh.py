@@ -1,4 +1,4 @@
-"""Flat BVH construction (host-side) for GPU-style traversal on TPU.
+"""Flat BVH construction (host-side) for wavefront traversal on the device.
 
 Design is the deduplicated union of the reference's three builders
 (SURVEY.md §2.4): largest-centroid-extent axis, median split, leaf ≤ 4
@@ -185,10 +185,10 @@ def build_bvh_for_triangles(
     C++ library is available (see ``native/bvh_builder.cpp``), the NumPy
     median-split builder otherwise.
 
-    ``row_size=8`` (default) prices SAH in packet-kernel leaf rows — the
-    Pallas packet megakernel tests triangles 8 per fixed-cost row, so
-    fuller leaves mean fewer leaf visits (measured v5e: +10% bunny, +13%
-    mesh5440, identical images).  0 restores the per-primitive SAH."""
+    ``row_size=8`` (default) prices SAH in 8-triangle leaf rows, which
+    builds fuller leaves with fewer leaf visits (a choice made for an
+    earlier packet-traversal kernel; the leaf shape for the GPU walk is
+    still open).  0 restores the per-primitive SAH."""
     from ..scene.geometry import triangle_bounds
 
     lo, hi = triangle_bounds(tris)
@@ -278,7 +278,7 @@ def build_two_level(
     Per-mesh trees use the native binned-SAH builder when available
     (``use_native``, ~20-40% fewer traversal visits than median split on
     real meshes); the top tree over mesh bounds is tiny and stays NumPy.
-    ``row_size=8`` (default) prices SAH in packet-kernel leaf rows — see
+    ``row_size=8`` (default) prices SAH in 8-triangle leaf rows — see
     :func:`build_bvh_for_triangles`; 0 restores per-primitive SAH.
 
     Returns (FlatBVH, Triangles): node/prim indices are rebased so the result

@@ -1,11 +1,12 @@
 """MXU-traversal BVH packing: superleaves as Plücker coefficient matrices.
 
-The TPU-native answer to per-thread GPU traversal (reference `hit_bvh`,
+A matrix-unit answer to per-thread GPU traversal (reference `hit_bvh`,
 `/root/reference/examples/julia-raytracer-optimized.jl:1710-1830`): instead
 of making 1024 rays chase pointers, collapse the binary BVH into a SHALLOW
 16-wide tree whose leaves are *superleaves* of up to 128 triangles, and
 intersect a whole superleaf against a whole ray packet with **matrix
-multiplies on the MXU**.
+multiplies on a matrix unit** (the packing of a retired experiment; its
+kernel was removed, the NumPy oracle stays).
 
 Möller–Trumbore in Plücker form is linear in per-ray features: with
 ``m = o × d`` and per-triangle constants ``n = e1×e2``, ``cu = v0×e2``,
@@ -18,8 +19,8 @@ Möller–Trumbore in Plücker form is linear in per-ray features: with
 
 so a couple of ``(tris, 8)·(8, 1024)`` MXU contractions evaluate det / u /
 v / t for 128 triangles x 1024 rays — ~3 MMAC, zero per-lane gathers, zero
-vector→scalar extracts (the two costs the round-1/2 traversal measurements
-identified as the TPU bottleneck; see docs/ARCHITECTURE.md).
+vector→scalar extracts (the two costs an earlier packet kernel's
+measurements identified as its bottleneck).
 
 Per superleaf (lane j = triangle j of the block), three row groups of 8:
 
@@ -237,7 +238,7 @@ def traverse_mxu_numpy(packed: MXUBVH, origin, direction, t_min=1e-3):
     nearest hit (t, normal, mat) for one ray, or (inf, 0, -1).
 
     Evaluates the same Plücker contraction the kernel runs, so coefficient
-    packing bugs show up here before touching the TPU."""
+    packing bugs show up here."""
     nodes = np.asarray(packed.nodes)
     cuv = np.asarray(packed.coeff_uv, np.float64)
     ct = np.asarray(packed.coeff_t, np.float64)

@@ -2,15 +2,17 @@
 
 The builder emits the exact flat layout of :class:`spira_tpu.accel.bvh.FlatBVH`
 but with binned-SAH splits (better trees, ~10-50× faster builds than the
-NumPy median-split builder on large meshes).  Falls back transparently to the
-NumPy builder when the shared library is absent and cannot be compiled
-(mirroring the reference's graceful capability-probing philosophy,
-`/root/reference/src/SPIRA.jl:16-19`).
+NumPy median-split builder on large meshes).  The library is built from the
+committed sources in ``native/`` on first use, and rebuilt when it is older
+than them, so a checkout never runs a binary built elsewhere.  When the
+build or the load fails the NumPy builder takes over, with a warning;
+:func:`last_builder` says which one built the most recent tree.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import subprocess
 
@@ -20,11 +22,31 @@ import numpy as np
 from ..utils.metrics import logger
 from .bvh import LEAF_SIZE, FlatBVH
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native")
+)
 _LIB_NAME = "libspira_native.so"
 
 _lib = None
 _lib_tried = False
+_last_builder = None
+
+
+def last_builder() -> str | None:
+    """Which builder made the most recent tree: ``"native-sah"`` or
+    ``"numpy-median"`` (None before the first build)."""
+    return _last_builder
+
+
+def _stale(path: str) -> bool:
+    """True when the library is missing or older than a source file."""
+    if not os.path.exists(path):
+        return True
+    sources = glob.glob(os.path.join(_NATIVE_DIR, "*.cpp")) + [
+        os.path.join(_NATIVE_DIR, "Makefile")
+    ]
+    built = os.path.getmtime(path)
+    return any(os.path.getmtime(src) > built for src in sources)
 
 
 def _load_library():
@@ -32,22 +54,26 @@ def _load_library():
     if _lib_tried:
         return _lib
     _lib_tried = True
-    path = os.path.abspath(os.path.join(_NATIVE_DIR, _LIB_NAME))
-    if not os.path.exists(path):
+    path = os.path.join(_NATIVE_DIR, _LIB_NAME)
+    if _stale(path):
         try:
             subprocess.run(
-                ["make", "-C", os.path.abspath(_NATIVE_DIR)],
+                ["make", "-B", "-C", _NATIVE_DIR],
                 check=True,
                 capture_output=True,
-                timeout=120,
+                timeout=300,
             )
         except Exception as e:  # no toolchain / build failure → fallback
-            logger.debug("native build failed (%s); using NumPy builder", e)
+            logger.warning(
+                "native build failed (%s); using the NumPy BVH builder", e
+            )
             return None
     try:
         lib = ctypes.CDLL(path)
     except OSError as e:
-        logger.debug("native load failed (%s); using NumPy builder", e)
+        logger.warning(
+            "native load failed (%s); using the NumPy BVH builder", e
+        )
         return None
     fn = lib.spira_build_bvh
     fn.restype = ctypes.c_int32
@@ -63,39 +89,33 @@ def _load_library():
         ctypes.POINTER(ctypes.c_int32),  # is_leaf
         ctypes.POINTER(ctypes.c_int32),  # prim_idx
     ]
-    try:
-        pf = lib.spira_parse_obj
-        pf.restype = ctypes.c_int32
-        pf.argtypes = [
-            ctypes.c_char_p,  # text
-            ctypes.c_long,  # length
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),  # out_verts
-            ctypes.POINTER(ctypes.c_long),  # out_nverts
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_longlong)),  # out_faces
-            ctypes.POINTER(ctypes.c_long),  # out_nfaces
-        ]
-        lib.spira_free.restype = None
-        lib.spira_free.argtypes = [ctypes.c_void_p]
-    except AttributeError:  # stale .so without the parser — rebuild later
-        pass
-    try:
-        rf = lib.spira_build_bvh_rows
-        rf.restype = ctypes.c_int32
-        rf.argtypes = [
-            ctypes.POINTER(ctypes.c_float),  # lo
-            ctypes.POINTER(ctypes.c_float),  # hi
-            ctypes.c_int32,  # n
-            ctypes.c_int32,  # leaf_size
-            ctypes.c_int32,  # row (0 = per-primitive SAH)
-            ctypes.POINTER(ctypes.c_float),  # node_min
-            ctypes.POINTER(ctypes.c_float),  # node_max
-            ctypes.POINTER(ctypes.c_int32),  # left
-            ctypes.POINTER(ctypes.c_int32),  # right
-            ctypes.POINTER(ctypes.c_int32),  # is_leaf
-            ctypes.POINTER(ctypes.c_int32),  # prim_idx
-        ]
-    except AttributeError:  # stale .so without row-granular SAH
-        pass
+    pf = lib.spira_parse_obj
+    pf.restype = ctypes.c_int32
+    pf.argtypes = [
+        ctypes.c_char_p,  # text
+        ctypes.c_long,  # length
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),  # out_verts
+        ctypes.POINTER(ctypes.c_long),  # out_nverts
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_longlong)),  # out_faces
+        ctypes.POINTER(ctypes.c_long),  # out_nfaces
+    ]
+    lib.spira_free.restype = None
+    lib.spira_free.argtypes = [ctypes.c_void_p]
+    rf = lib.spira_build_bvh_rows
+    rf.restype = ctypes.c_int32
+    rf.argtypes = [
+        ctypes.POINTER(ctypes.c_float),  # lo
+        ctypes.POINTER(ctypes.c_float),  # hi
+        ctypes.c_int32,  # n
+        ctypes.c_int32,  # leaf_size
+        ctypes.c_int32,  # row (0 = per-primitive SAH)
+        ctypes.POINTER(ctypes.c_float),  # node_min
+        ctypes.POINTER(ctypes.c_float),  # node_max
+        ctypes.POINTER(ctypes.c_int32),  # left
+        ctypes.POINTER(ctypes.c_int32),  # right
+        ctypes.POINTER(ctypes.c_int32),  # is_leaf
+        ctypes.POINTER(ctypes.c_int32),  # prim_idx
+    ]
     _lib = lib
     return _lib
 
@@ -105,7 +125,7 @@ def parse_obj_native(text: str):
     faces (T,3) i64, 0-based, fan-triangulated) or None when the native
     library (or the symbol) is unavailable / the text holds no triangles."""
     lib = _load_library()
-    if lib is None or not hasattr(lib, "spira_parse_obj"):
+    if lib is None:
         return None
     raw = text.encode("utf-8", errors="replace")
     vp = ctypes.POINTER(ctypes.c_float)()
@@ -141,14 +161,10 @@ def build_bvh_native(
     (ceil(count/row_size)) instead of primitives, with an exact 3-axis
     sweep for small nodes — fuller leaves, fewer packet leaf visits (the
     kernel pays one fixed row of tests per visit)."""
+    global _last_builder
     lib = _load_library()
     if lib is None:
         raise RuntimeError("native BVH builder unavailable")
-    if row_size and not hasattr(lib, "spira_build_bvh_rows"):
-        raise RuntimeError(
-            "native library is stale (no spira_build_bvh_rows); "
-            "run `make -C native clean all`"
-        )
     lo = np.ascontiguousarray(lo, np.float32)
     hi = np.ascontiguousarray(hi, np.float32)
     n = lo.shape[0]
@@ -185,6 +201,7 @@ def build_bvh_native(
         raise RuntimeError("native BVH build failed")
     from .bvh import add_links
 
+    _last_builder = "native-sah"
     leaf_mask = is_leaf[:m] == 1
     max_leaf = int(right[:m][leaf_mask].max())
     return add_links(FlatBVH(
@@ -201,18 +218,14 @@ def build_bvh_native(
 def build_bvh_best(lo, hi, leaf_size: int = LEAF_SIZE,
                    row_size: int = 0) -> FlatBVH:
     """Native SAH builder when available, NumPy median-split otherwise.
-    ``row_size`` (row-granular SAH) needs the native builder; it is
-    silently ignored on the NumPy fallback (tree quality, not
-    correctness)."""
+    ``row_size`` (row-granular SAH) needs the native builder; the NumPy
+    fallback ignores it (tree quality, not correctness)."""
+    global _last_builder
     if native_available():
-        try:
-            return build_bvh_native(lo, hi, leaf_size, row_size=row_size)
-        except RuntimeError:
-            if not row_size:
-                raise
-            return build_bvh_native(lo, hi, leaf_size)  # stale .so
+        return build_bvh_native(lo, hi, leaf_size, row_size=row_size)
     from .bvh import build_bvh
 
+    _last_builder = "numpy-median"
     return build_bvh(lo, hi, leaf_size)
 
 
@@ -236,8 +249,9 @@ def build_sbvh_native(
     idempotent).  ``alpha`` is the SBVH overlap threshold relative to the
     root area; ``max_ref_factor`` caps reference inflation.
     """
+    global _last_builder
     lib = _load_library()
-    if lib is None or not hasattr(lib, "spira_build_sbvh"):
+    if lib is None:
         raise RuntimeError("native SBVH builder unavailable")
     if not hasattr(lib.spira_build_sbvh, "_typed"):
         f = lib.spira_build_sbvh
@@ -290,6 +304,7 @@ def build_sbvh_native(
         raise RuntimeError("native SBVH build failed")
     from .bvh import add_links
 
+    _last_builder = "native-sbvh"
     leaf_mask = is_leaf[:m] == 1
     max_leaf = int(right[:m][leaf_mask].max())
     return add_links(FlatBVH(

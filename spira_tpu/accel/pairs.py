@@ -1,9 +1,9 @@
-"""Pair-record BVH packing for the Pallas packet-traversal megakernel.
+"""Pair-record BVH packing for a packet-traversal kernel (host-side NumPy).
 
-The round-1 cost model (docs/ARCHITECTURE.md) showed per-lane dynamic gathers
-are the TPU's weak spot: XLA emulates them ~100x slower inside loop bodies,
-and a vector machine has no per-lane scatter for traversal stacks.  The
-packet kernel (`spira_tpu/kernels/bvh_megakernel.py`) therefore shares ONE
+The kernel these tables fed was written for a vector machine without fast
+per-lane gathers or per-lane scatter for traversal stacks, and was removed
+with that machine; the packing and its NumPy oracle remain.  The packet
+kernel shared ONE
 traversal among all 1024 rays of an (8, 128) tile: scalar control flow +
 an SMEM stack drive the tree walk, while every box/triangle test is a
 full-tile VPU op.  That flips the reference's thread-per-ray stack traversal
@@ -281,8 +281,8 @@ def pack_bvh(bvh, tris, materials=None, form="bw", fanout=2) -> PackedBVH:
 
     Leaves larger than ``TRIS_PER_ROW`` span multiple consecutive rows (the
     kernel unrolls ``ceil(max_leaf / 8)`` row loads).  ``form`` picks the
-    leaf operand layout (module docstring): ``"bw"`` (default — measured
-    faster on v5e) or ``"mt"``.  ``fanout=4`` emits quad records
+    leaf operand layout (module docstring): ``"bw"`` (default) or
+    ``"mt"``.  ``fanout=4`` emits quad records
     (BVH2→BVH4 collapse, :func:`build_quad_records`).
     """
     node_min = np.asarray(bvh.node_min, np.float32)

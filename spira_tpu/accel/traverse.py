@@ -5,9 +5,8 @@ Two implementations of the reference's GPU traversal (`hit_bvh`,
 
 * :func:`intersect_bvh` — **stackless** state-machine traversal (Hapala et
   al. 2011 style: parent/sibling links, ENTER/LEAVE states).  The production
-  path on TPU: gathers and scatters are the expensive ops on a vector
-  machine, so the per-iteration footprint is exactly two packed node-table
-  gathers and two leaf gathers — and **zero scatters** (no per-ray stack
+  path: the per-iteration footprint is exactly two packed node-table
+  gathers and the leaf gathers — and **zero scatters** (no per-ray stack
   array to update).
 * :func:`intersect_bvh_stack` — the literal stack-per-ray form (64-deep,
   push right then left), kept as the structural mirror of the MSL kernel and
@@ -81,7 +80,16 @@ def intersect_bvh(bvh, tris, origins, directions, t_min=T_MIN) -> Hit:
     """Stackless nearest-hit traversal (production path)."""
     # gradients: the while_loop runs on stopped inputs; the returned hit is
     # differentiably recomputed against the winner (_winner_triangle_hit)
-    o_diff, d_diff = origins, directions
+    best_t, best_prim = bvh_winner(bvh, tris, origins, directions, t_min)
+    return _winner_triangle_hit(
+        tris, best_prim, best_t < INF, origins, directions
+    )
+
+
+def bvh_winner(bvh, tris, origins, directions, t_min=T_MIN):
+    """The stackless walk itself: ``(best_t, best_prim)`` per ray, the
+    nearest hit distance (INF on a miss) and the winning triangle's index.
+    Not differentiable; :func:`intersect_bvh` adds the hit record."""
     origins = jax.lax.stop_gradient(origins)
     directions = jax.lax.stop_gradient(directions)
     tris_ng = jax.lax.stop_gradient(tris)
@@ -113,10 +121,8 @@ def intersect_bvh(bvh, tris, origins, directions, t_min=T_MIN) -> Hit:
         zero_i,  # best_prim
         jnp.sum(zero_i),  # iteration counter (varying-typed scalar)
     )
-    # TPU cost notes (measured): the while_loop condition is a cross-lane
-    # reduction that serializes ~300 µs per check, and 2-D (N,L,9) gathers
-    # are ~70× slower than row gathers.  Hence: CHUNK traversal steps per
-    # while check, and gather leaf primitives as per-slot 1-D row gathers.
+    # The while condition is a reduction over every ray, so CHUNK traversal
+    # steps run per check; leaf primitives are gathered as per-slot rows.
     chunk = 8
     max_iters = 4 * bvh.node_count + 64  # safety bound
 
@@ -189,17 +195,14 @@ def intersect_bvh(bvh, tris, origins, directions, t_min=T_MIN) -> Hit:
         return s
 
     _, _, _, best_t, best_prim, _ = jax.lax.while_loop(cond, body, state)
-
-    return _winner_triangle_hit(
-        tris, best_prim, best_t < INF, o_diff, d_diff
-    )
+    return best_t, best_prim
 
 
 def intersect_bvh_mixed(
     bvh, spheres, tris, origins, directions, t_min=T_MIN
 ) -> Hit:
     """Stackless traversal over a mixed sphere+triangle tree
-    (:func:`spira_tpu.accel.bvh.build_mixed_bvh`); the TPU form of the
+    (:func:`spira_tpu.accel.bvh.build_mixed_bvh`); the wavefront form of the
     reference's typed-primitive leaf loop (`hit_bvh` dispatching
     sphere/triangle intersects,
     /root/reference/examples/julia-raytracer-optimized.jl:1710-1775).

@@ -9,7 +9,7 @@ time instead of 2: measured on the bunny tree, scattered packets visit
 and the whole 16-child hit mask costs ONE vector->scalar sync (an
 OR-reduction of per-lane bit-planes) instead of one per child pair.
 
-This is the TPU counterpart of multi-branching (BVH8 / "wide BVH")
+This is the packet-kernel counterpart of multi-branching (BVH8 / "wide BVH")
 compaction used by production GPU traversers; the reference's traversal is
 binary (`hit_bvh`, /root/reference/examples/julia-raytracer-optimized.jl:
 1710-1775) — the wide collapse preserves its leaf geometry exactly.

@@ -90,7 +90,11 @@ def _cmd_inverse(args) -> int:
                 cfg.checkpoint_dir, params=params, opt_state=opt_state,
                 step=it + 1,
             )
-    logger.info("final loss %.6f", float(loss))
+    loss = float(loss)
+    logger.info("final loss %.6f", loss)
+    if not np.isfinite(loss):
+        logger.error("non-finite loss; the optimisation diverged")
+        return 1
     if cfg.output:
         from .core.types import replace
 
@@ -112,7 +116,7 @@ def _cmd_inverse(args) -> int:
 def _cmd_info(args) -> int:
     import jax
 
-    print(f"spira_tpu — TPU-native differentiable spectral path tracer")
+    print("spira_tpu — differentiable spectral path tracer in JAX")
     print(f"jax {jax.__version__}")
     print(f"backend: {jax.default_backend()}")
     for d in jax.devices():
@@ -142,6 +146,9 @@ def main(argv=None) -> int:
     pn.set_defaults(fn=_cmd_info)
 
     args = p.parse_args(argv)
+    from .utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

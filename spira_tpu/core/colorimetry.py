@@ -2,8 +2,8 @@
 
 Spectral rendering is a capability the reference only *claims* in its docs
 (`/root/reference/README.md:10`, SURVEY.md §0) — this subsystem is new-build,
-designed for TPU: smooth analytic CMF fits (pure elementwise math, no table
-gathers in the hot path) and small per-material SPD tables for materials.
+designed for an accelerator: smooth analytic CMF fits (pure elementwise
+math, no table gathers in the hot path) and small per-material SPD tables.
 
 Public-constant sources:
   * CIE 1931 2° color matching functions — multi-lobe piecewise-Gaussian fits
@@ -16,6 +16,7 @@ Public-constant sources:
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -95,7 +96,10 @@ D65_WHITE = np.asarray([0.95047, 1.0, 1.08883], np.float32)
 def xyz_to_rgb(xyz):
     """(..., 3) XYZ → linear sRGB with E→D65 adaptation."""
     adapted = xyz * jnp.asarray(D65_WHITE)
-    return jnp.einsum("...j,ij->...i", adapted, jnp.asarray(XYZ_TO_SRGB))
+    return jnp.einsum(
+        "...j,ij->...i", adapted, jnp.asarray(XYZ_TO_SRGB),
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
 
 def spectrum_to_xyz(values, lam):

@@ -3,7 +3,7 @@
 A pure-`jnp` uint32 implementation of the pcg4d hash (Jarzynski & Olano,
 "Hash Functions for GPU Rendering", JCGT 2020 — published construction built
 on the PCG family), usable identically inside Pallas kernels, under XLA, and
-in Pallas interpret mode (unlike `pltpu.prng_*`, which has no CPU lowering).
+in Pallas interpret mode.
 
 Counter-based like the threefry layer in :mod:`spira_tpu.core.rng` — every
 draw is a pure function of (pixel, sample, bounce·stream, seed), so kernel
@@ -50,7 +50,7 @@ def to_uniform(bits):
     """uint32 → float32 in [0, 1) using the top 24 bits (exact in f32).
 
     Routed via int32 — safe since the shifted value fits in 24 bits, and
-    Mosaic (Pallas TPU) has no direct uint32→float32 cast.
+    the signed convert is the cheaper instruction.
     """
     return (bits >> np.uint32(8)).astype(jnp.int32).astype(jnp.float32) * np.float32(
         1.0 / (1 << 24)

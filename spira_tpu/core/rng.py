@@ -8,7 +8,7 @@ Replaces the reference's three stateful RNGs (SURVEY.md §2.6):
   (`/root/reference/src/spira-metal-optimized.jl:412-426`),
 * Julia global ``rand()`` on the CPU paths.
 
-The TPU-native design is stateless and counter-based: every random draw is a
+This design is stateless and counter-based: every random draw is a
 pure function of ``(seed, sample_index, bounce_index, stream)`` plus the ray's
 position in the wavefront array.  One threefry call produces randomness for
 the *entire* wavefront at once (fully vectorized), and any draw can be

@@ -3,7 +3,7 @@
 The reference keeps its scene model as plain Julia structs
 (`/root/reference/src/spira-metal-optimized.jl:282-354`) and then serializes
 them to flat SoA float arrays for the GPU (`prepare_scene_data`, `:515-542`).
-The TPU-native design skips the serialization step entirely: scene objects
+This design skips the serialization step entirely: scene objects
 *are* structure-of-array pytrees of `jnp` arrays, registered with JAX so they
 can flow through `jit` / `grad` / `shard_map` directly.
 """

@@ -2,10 +2,10 @@
 
 The reference duplicates a scalar Vec3 layer per file (SVector{3,Float32} at
 `/root/reference/src/spira-metal-optimized.jl:282-290`, hand-rolled structs at
-`/root/reference/examples/julia-raytracer.jl:11-41`).  On TPU every vector op
-is a lane-parallel VPU op over a whole wavefront of rays at once, so the
-canonical layout is an array with a trailing length-3 axis and an arbitrary
-batch prefix.  All helpers here broadcast.
+`/root/reference/examples/julia-raytracer.jl:11-41`).  Here every vector op
+runs over a whole wavefront of rays at once, so the canonical layout is an
+array with a trailing length-3 axis and an arbitrary batch prefix.  All
+helpers here broadcast.
 """
 
 from __future__ import annotations

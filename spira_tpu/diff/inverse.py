@@ -37,21 +37,14 @@ def render_for_grad(
     semantics: str = "physical",
     spectral: bool = False,
     mesh=None,
-    intersect: str | None = None,
 ):
     """Differentiable render of `scene` with material overrides from
     ``params`` (a dict of Materials field overrides, e.g. albedo/emission).
 
     When ``mesh`` is given, the ray axis is tile-sharded and samples are
     spp-sharded exactly like the forward renderer; XLA inserts the gradient
-    all-reduce (`psum` over ICI) for the replicated parameters in the
-    backward pass.
-
-    ``intersect``: ``"packet"`` / ``"packet_interpret"`` route mesh
-    intersection through the differentiable packet hook (traversal as a
-    stop-gradient Pallas kernel + gradient-carrying winner recompute) —
-    REQUIRED for packed mesh scenes on real TPU, where the pure-XLA
-    stackless walk faults the chip (see render.py hybrid docstring).
+    all-reduce (`psum` between devices) for the replicated parameters in
+    the backward pass.
     """
     materials = scene.materials
     for name, value in params.items():
@@ -66,14 +59,6 @@ def render_for_grad(
     else:
         n_rows = height // mesh.shape["tile"]
         spp_per = spp // mesh.shape.get("spp", 1)
-
-    intersect_fn = None
-    if intersect is not None:
-        from ..kernels.bvh_megakernel import make_sorted_tile_intersect
-
-        intersect_fn = make_sorted_tile_intersect(
-            grad=True, interpret=intersect.endswith("interpret")
-        )
 
     # Per-sample and per-bounce checkpointing (path-replay backprop) lives
     # inside accumulate_rows/trace; this wrapper only fixes the static config.
@@ -91,7 +76,6 @@ def render_for_grad(
             max_depth=max_depth,
             semantics=semantics,
             spectral=spectral,
-            intersect_fn=intersect_fn,
         )
 
     if mesh is None:
@@ -107,12 +91,8 @@ def render_for_grad(
         acc = ckpt_accumulate(scene, camera, base, t * n_rows, s * spp_per)
         return jax.lax.psum(acc, "spp") / jnp.float32(spp)
 
-    # check_vma=False: the packet-hook intersect (a Pallas call in the
-    # shard body) mixes varying/invariant axes the checker cannot type,
-    # same as the forward sharded renderer (parallel/sharded.py)
     return shard_map(
         shard_body, mesh=mesh, in_specs=(P(), P()), out_specs=P("tile"),
-        check_vma=False,
     )(scene, camera)
 
 
@@ -122,7 +102,7 @@ def mse_loss(rendered, target):
 
 @lru_cache(maxsize=32)
 def _make_step(optimizer, width, height, spp, max_depth, semantics,
-               spectral, mesh, intersect=None):
+               spectral, mesh):
     def loss_fn(params, scene, camera, target, step_idx):
         img = render_for_grad(
             params,
@@ -136,7 +116,6 @@ def _make_step(optimizer, width, height, spp, max_depth, semantics,
             semantics=semantics,
             spectral=spectral,
             mesh=mesh,
-            intersect=intersect,
         )
         return mse_loss(img, target)
 
@@ -180,7 +159,6 @@ def make_inverse_step(
     learning_rate: float = 2e-2,
     mesh=None,
     optimizer=None,
-    intersect: str | None = None,
 ):
     """Build (step_fn, init_fn) for the Adam inverse-rendering loop.
 
@@ -193,7 +171,6 @@ def make_inverse_step(
         optimizer = optax.adam(learning_rate)
     step = _make_step(
         optimizer, width, height, spp, max_depth, semantics, spectral, mesh,
-        intersect,
     )
 
     def init(params):

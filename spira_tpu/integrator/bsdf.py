@@ -21,6 +21,7 @@ Everything is branch-free masked select — no per-ray control flow.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..core import rng as srng
@@ -28,28 +29,26 @@ from ..core import vecmath as vm
 
 
 def one_hot_rows(idx, count):
-    """(N, count) float32 one-hot of int indices.
-
-    The wavefront runs inside a `lax.scan` over bounces, where XLA lowers
-    per-lane gathers ~100x slower than standalone (measured cost model,
-    docs/ARCHITECTURE.md).  A one-hot matmul routes the same row selection
-    through the MXU instead — bitwise-identical results (1*x + 0*... = x).
-    """
+    """(N, count) float32 one-hot of int indices."""
     return (idx[:, None] == jnp.arange(count, dtype=idx.dtype)[None, :]).astype(
         jnp.float32
     )
 
 
 def take_rows(one_hot, table):
-    """rows[i] = table[idx[i]] via MXU; table (M,) or (M, K)."""
-    if table.ndim == 1:
-        return one_hot @ table
-    return jnp.matmul(one_hot, table, preferred_element_type=jnp.float32)
+    """rows[i] = table[idx[i]] as a one-hot product; table (M,) or (M, K).
+
+    At ``Precision.HIGHEST`` the product selects rows exactly (1*x + 0*y =
+    x in float32) and its transpose is a deterministic product too, where a
+    gather's would scatter-add with atomics.  At default precision a GPU
+    would run it in TF32 and round the selected values to ~3 digits.
+    """
+    return jnp.matmul(one_hot, table, precision=jax.lax.Precision.HIGHEST)
 
 
 def gather_materials(materials, mat_idx):
     """Per-ray material fields from per-ray 0-based material indices
-    (one-hot MXU row selection — no per-lane gathers in the bounce loop)."""
+    (one-hot row selection, see :func:`take_rows`)."""
     oh = one_hot_rows(mat_idx, materials.count)
     cauchy = (
         materials.cauchy_b

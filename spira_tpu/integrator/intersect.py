@@ -6,19 +6,22 @@ per-sphere broadcast stage of the wavefront renderer
 (`/root/reference/src/spira-metal-optimized.jl:700-799`) and the MSL
 `intersect_sphere` (`/root/reference/src/spira_path_trace_kernel.metal:109-136`).
 
-On TPU an intersection test is an elementwise op over an (N_rays, N_prims)
-grid — ideal VPU work.  The wavefront stays resident; the nearest-hit
-reduction is a masked min over the primitive axis.  No per-ray scalar loops,
+An intersection test is an elementwise op over an (N_rays, N_prims) grid.
+The wavefront stays resident; the nearest-hit reduction is a masked min
+over the primitive axis.  No per-ray scalar loops,
 no `allowscalar` update loop (the reference's known perf sin, SURVEY.md §2.2).
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..core import vecmath as vm
 from ..core.types import pytree_dataclass
 from ..core.vecmath import INF, T_MIN
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @pytree_dataclass
@@ -52,7 +55,7 @@ def intersect_spheres(spheres, origins, directions, t_min=T_MIN, t_max=INF) -> H
         return no_hit(n)
 
     oc = origins[:, None, :] - spheres.centers[None, :, :]  # (N,S,3)
-    half_b = jnp.einsum("nsc,nc->ns", oc, directions)
+    half_b = jnp.einsum("nsc,nc->ns", oc, directions, precision=_HIGHEST)
     c = jnp.sum(oc * oc, axis=-1) - spheres.radii[None, :] ** 2
     disc = half_b * half_b - c
     # double-where guards: sqrt'(0)=inf and 1/0 in masked-off branches would
@@ -67,9 +70,9 @@ def intersect_spheres(spheres, origins, directions, t_min=T_MIN, t_max=INF) -> H
 
     t_best = jnp.min(t, axis=1)  # (N,)
     hit = t_best < INF
-    # One-hot winner selection (first match on ties) routed through the MXU
-    # — per-lane gathers inside the bounce scan are ~100x slower (cost
-    # model, docs/ARCHITECTURE.md).
+    # One-hot winner selection (first match on ties) as a float32 product
+    # at full precision, which selects rows exactly and keeps gradients
+    # deterministic (a gather's transpose would scatter with atomics).
     is_best = (t == t_best[:, None]) & valid
     one_hot = (is_best & (jnp.cumsum(is_best, axis=1) == 1)).astype(
         jnp.float32
@@ -78,14 +81,12 @@ def intersect_spheres(spheres, origins, directions, t_min=T_MIN, t_max=INF) -> H
     # normal computation only.
     t_safe = jnp.where(hit, t_best, 1.0)
 
-    center = jnp.matmul(
-        one_hot, spheres.centers, preferred_element_type=jnp.float32
-    )  # (N,3)
+    center = jnp.matmul(one_hot, spheres.centers, precision=_HIGHEST)  # (N,3)
     p = origins + t_safe[:, None] * directions
     normal = vm.normalize(p - center)
-    material = (one_hot @ spheres.material.astype(jnp.float32)).astype(
-        jnp.int32
-    )
+    material = jnp.matmul(
+        one_hot, spheres.material.astype(jnp.float32), precision=_HIGHEST
+    ).astype(jnp.int32)
     return Hit(t=t_best, normal=normal, material=material, hit=hit)
 
 
@@ -118,10 +119,10 @@ def intersect_triangles(
     one_hot = (is_best & (jnp.cumsum(is_best, axis=1) == 1)).astype(
         jnp.float32
     )
-    normal = jnp.matmul(
-        one_hot, tris.normal, preferred_element_type=jnp.float32
-    )
-    material = (one_hot @ tris.material.astype(jnp.float32)).astype(jnp.int32)
+    normal = jnp.matmul(one_hot, tris.normal, precision=_HIGHEST)
+    material = jnp.matmul(
+        one_hot, tris.material.astype(jnp.float32), precision=_HIGHEST
+    ).astype(jnp.int32)
     return Hit(t=t_best, normal=normal, material=material, hit=hit)
 
 

@@ -103,8 +103,8 @@ def _bounce(carry, bounce_idx, *, scene, sample_key, lam, russian_roulette,
     mat = bsdf.gather_materials(materials, hit.material)
 
     # SPD lookups: (N, W) albedo/emission at each carried wavelength.
-    # SPD table rows route through the one-hot MXU selection like the RGB
-    # fields (per-lane gathers are ~100x slower inside the bounce scan).
+    # SPD table rows route through the one-hot selection like the RGB
+    # fields (bsdf.take_rows: exact at full precision, deterministic VJP).
     oh = bsdf.one_hot_rows(hit.material, materials.count)
     alb = cl.sample_spd(bsdf.take_rows(oh, materials.albedo_spd), lam)
     emi = cl.sample_spd(bsdf.take_rows(oh, materials.emission_spd), lam)

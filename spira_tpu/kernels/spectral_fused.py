@@ -23,8 +23,8 @@ throughput.  The design difference from the wavefront spectral estimator
   per sample and accumulates XYZ; linear sRGB comes out at the end.
 
 Runs as fused-XLA (differentiable w.r.t. the Chebyshev coefficient tables,
-hence the SPDs) — a Pallas wrapper follows the same pattern as the RGB
-megakernel if needed.
+hence the SPDs).  Its Pallas-Triton form measured slower than this on an
+H100 and was removed (PERF.md).
 """
 
 from __future__ import annotations
@@ -34,8 +34,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..core import colorimetry as cl
 from ..core import pcg
@@ -47,11 +45,11 @@ from .megakernel import (
     RR_START,
     SCATTER_EPS,
     T_MIN,
-    TILE_H,
-    TILE_W,
     _dot3,
     _norm3,
     _select,
+    cam_tuple,
+    pack_camera_jnp,
 )
 
 W = cl.N_WAVELENGTHS
@@ -88,8 +86,8 @@ def make_brute_intersect_spectral(spheres, triangles):
     normal pre-face-forward ((0,1,0) on miss), and ``smats`` the per-lane
     material bundle ``(metal, rough, ior, trans, cauchy, alb_cheb[D],
     emi_cheb[D])``.  This is the default hook of
-    :func:`trace_tile_spectral`; the packet-BVH engine substitutes its
-    traversal here (mirroring the RGB tracer's ``intersect_fn``)."""
+    :func:`trace_tile_spectral`; a traversal kernel can substitute its
+    nearest hit here (mirroring the RGB tracer's ``intersect_fn``)."""
 
     def intersect(o3, d3, active=None):
         ox, oy, oz = o3
@@ -243,8 +241,8 @@ def trace_tile_spectral(
     :func:`pack_scene_spectral`.
 
     ``intersect_fn`` (see :func:`make_brute_intersect_spectral` for the
-    contract) overrides the nearest-hit query — the spectral packet-BVH
-    engine plugs its traversal in here and shares the shading below.
+    contract) overrides the nearest-hit query — a traversal kernel plugs
+    in here and shares the shading below.
     """
     (ox0, oy0, oz0, llcx, llcy, llcz, hx, hy, hz, vx, vy, vz) = cam[:12]
     if intersect_fn is None:
@@ -383,8 +381,13 @@ def trace_tile_spectral(
             cos_i = jnp.clip(-d_dot_n, 0.0, 1.0)
             sin2_t = eta * eta * jnp.maximum(0.0, 1.0 - cos_i * cos_i)
             tir = sin2_t > 1.0
+            # double-where on cos_t² > 0, not just ~tir: at sin2_t == 1
+            # sqrt'(0) = inf, and the untaken lobe's zero cotangent times
+            # inf is NaN in the backward pass
+            cos_t2 = 1.0 - sin2_t
+            cos_ok = cos_t2 > 0.0
             cos_t = jnp.where(
-                tir, 0.0, jnp.sqrt(jnp.where(tir, 1.0, 1.0 - sin2_t))
+                cos_ok, jnp.sqrt(jnp.where(cos_ok, cos_t2, 1.0)), 0.0
             )
             fx = eta * dx + (eta * cos_i - cos_t) * nx
             fy = eta * dy + (eta * cos_i - cos_t) * ny
@@ -520,7 +523,9 @@ def pack_scene_spectral_jnp(scene):
     pinv = jnp.asarray(_CHEB_PINV)
 
     def lin_fit(table):
-        return jnp.einsum("dk,mk->md", pinv, table)
+        return jnp.einsum(
+            "dk,mk->md", pinv, table, precision=jax.lax.Precision.HIGHEST
+        )
 
     alb_cheb = lin_fit(mats.albedo_spd)
     emi_cheb = lin_fit(mats.emission_spd)
@@ -569,20 +574,12 @@ def pack_scene_spectral_jnp(scene):
                      "n_tris", "inclusive_uv"),
 )
 def _fused_spectral_xla(
-    seed_arr, scene, camera, *, width, height, spp, max_depth,
+    seed, scene, camera, *, width, height, spp, max_depth,
     n_spheres, n_tris, inclusive_uv,
 ):
-    from .megakernel import pack_camera_jnp
-
-    cam_arr = pack_camera_jnp(camera)
     sph_arr, tri_arr = pack_scene_spectral_jnp(scene)
-    h_pad = pl.cdiv(height, TILE_H) * TILE_H
-    w_pad = pl.cdiv(width, TILE_W) * TILE_W
-    row = jax.lax.broadcasted_iota(jnp.int32, (h_pad, w_pad), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (h_pad, w_pad), 1)
-    from .megakernel import cam_tuple
-
-    cam = cam_tuple(cam_arr, camera.has_lens)
+    row = jax.lax.broadcasted_iota(jnp.int32, (height, width), 0)
+    col = jax.lax.broadcasted_iota(jnp.int32, (height, width), 1)
     spheres = [
         tuple(sph_arr[k, f] for f in range(N_SPH_SPEC))
         for k in range(n_spheres)
@@ -594,10 +591,10 @@ def _fused_spectral_xla(
         (row * width + col).astype(jnp.uint32),
         row.astype(jnp.float32),
         col.astype(jnp.float32),
-        cam,
+        cam_tuple(pack_camera_jnp(camera), camera.has_lens),
         spheres,
         triangles,
-        seed=seed_arr[0, 0],
+        seed=seed,
         spp=spp,
         max_depth=max_depth,
         du=np.float32(width - 1 if inclusive_uv else width),
@@ -605,8 +602,7 @@ def _fused_spectral_xla(
     )
     inv = np.float32(1.0 / spp)
     xyz = jnp.stack([x * inv, y * inv, z * inv], axis=-1)
-    rgb = cl.xyz_to_rgb(xyz)
-    return rgb
+    return jnp.reshape(cl.xyz_to_rgb(xyz), (height * width, 3))
 
 
 def render_flat_fused_spectral(
@@ -626,8 +622,8 @@ def render_flat_fused_spectral(
             f"fused spectral engine supports at most {FUSED_TRI_LIMIT} "
             f"triangles; large meshes use the wavefront spectral path"
         )
-    rgb = _fused_spectral_xla(
-        jnp.asarray([[seed]], jnp.int32),
+    return _fused_spectral_xla(
+        jnp.int32(seed),
         scene,
         camera,
         width=width,
@@ -638,130 +634,3 @@ def render_flat_fused_spectral(
         n_tris=scene.triangles.count,
         inclusive_uv=inclusive_uv,
     )
-    img = rgb[:height, :width]
-    return jnp.reshape(img, (height * width, 3))
-
-
-# ----------------------------------------------------------------------------
-# Pallas wrapper (same tracer, one Mosaic program per (8, 128) tile)
-# ----------------------------------------------------------------------------
-
-
-def _spectral_kernel(
-    seed_ref, cam_ref, sph_ref, tri_ref, out_x, out_y, out_z,
-    *, spp, max_depth, width, height, n_spheres, n_tris, inclusive_uv,
-    has_lens=False,
-):
-    from .megakernel import cam_tuple
-
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    row = i * TILE_H + jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 0)
-    col = j * TILE_W + jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 1)
-    cam = cam_tuple(cam_ref, has_lens)
-    spheres = [
-        tuple(sph_ref[k, f] for f in range(N_SPH_SPEC))
-        for k in range(n_spheres)
-    ]
-    triangles = [
-        tuple(tri_ref[k, f] for f in range(N_TRI_SPEC)) for k in range(n_tris)
-    ]
-    x, y, z = trace_tile_spectral(
-        (row * width + col).astype(jnp.uint32),
-        row.astype(jnp.float32),
-        col.astype(jnp.float32),
-        cam,
-        spheres,
-        triangles,
-        seed=seed_ref[0, 0],
-        spp=spp,
-        max_depth=max_depth,
-        du=np.float32(width - 1 if inclusive_uv else width),
-        dv=np.float32(height - 1 if inclusive_uv else height),
-        remat=False,  # Mosaic has no remat2 lowering; forward-only kernel
-    )
-    inv = np.float32(1.0 / spp)
-    out_x[:] = x * inv
-    out_y[:] = y * inv
-    out_z[:] = z * inv
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("width", "height", "spp", "max_depth", "n_spheres",
-                     "n_tris", "inclusive_uv", "interpret"),
-)
-def _launch_spectral(
-    seed_arr, scene, camera, *, width, height, spp, max_depth,
-    n_spheres, n_tris, inclusive_uv, interpret,
-):
-    from .megakernel import pack_camera_jnp
-
-    cam_arr = pack_camera_jnp(camera)
-    sph_arr, tri_arr = pack_scene_spectral_jnp(scene)
-    grid_h = pl.cdiv(height, TILE_H)
-    grid_w = pl.cdiv(width, TILE_W)
-    h_pad = grid_h * TILE_H
-    w_pad = grid_w * TILE_W
-
-    kernel = functools.partial(
-        _spectral_kernel,
-        spp=spp, max_depth=max_depth, width=width, height=height,
-        n_spheres=n_spheres, n_tris=n_tris, inclusive_uv=inclusive_uv,
-        has_lens=camera.has_lens,
-    )
-    out_shape = jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32)
-    block = pl.BlockSpec(
-        (TILE_H, TILE_W), lambda i, j: (i, j), memory_space=pltpu.VMEM
-    )
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    x, y, z = pl.pallas_call(
-        kernel,
-        grid=(grid_h, grid_w),
-        out_shape=(out_shape, out_shape, out_shape),
-        in_specs=[smem, smem, smem, smem],
-        out_specs=(block, block, block),
-        interpret=interpret,
-    )(seed_arr, cam_arr, sph_arr, tri_arr)
-    # XYZ -> linear sRGB outside the kernel (minor-dim-3 stack is an XLA op)
-    return cl.xyz_to_rgb(jnp.stack([x, y, z], axis=-1))
-
-
-def render_flat_spectral_megakernel(
-    scene,
-    camera,
-    *,
-    width: int,
-    height: int,
-    spp: int = 16,
-    max_depth: int = 4,
-    seed: int = 0,
-    inclusive_uv: bool = True,
-    interpret: bool = False,
-):
-    """Pallas spectral render → flat (H*W, 3) bottom-up linear-sRGB buffer.
-
-    Identical tracer (and PCG stream) to
-    :func:`render_flat_fused_spectral` — images match to float tolerance;
-    the Pallas program just tiles it onto the (8, 128) vector units.
-    """
-    if scene.triangles.count > FUSED_TRI_LIMIT:
-        raise ValueError(
-            f"spectral megakernel supports at most {FUSED_TRI_LIMIT} "
-            f"triangles; large meshes use the wavefront spectral path"
-        )
-    rgb = _launch_spectral(
-        jnp.asarray([[seed]], jnp.int32),
-        scene,
-        camera,
-        width=width,
-        height=height,
-        spp=spp,
-        max_depth=max_depth,
-        n_spheres=scene.spheres.count,
-        n_tris=scene.triangles.count,
-        inclusive_uv=inclusive_uv,
-        interpret=interpret,
-    )
-    img = rgb[:height, :width]
-    return jnp.reshape(img, (height * width, 3))

@@ -5,10 +5,10 @@ single-device).  The model:
 
 * `initialize()` wraps `jax.distributed.initialize` — call once per host
   process before any JAX computation; a no-op for single-process runs.
-* One *global* mesh spans every chip of every host
+* One *global* mesh spans every device of every host
   (`jax.devices()` post-init is the global device list); rendering uses the
-  same `render_flat_sharded` — GSPMD partitions the program, collectives
-  ride ICI within a host/slice and DCN across hosts.
+  same `render_flat_sharded` — XLA partitions the program and hands the
+  collectives to NCCL (NVLink within a host, the network across hosts).
 * Each host owns the contiguous pixel rows of its addressable shards
   (`host_row_ranges`); `gather_image` all-gathers shards so every host (or
   just host 0) can assemble and write the full frame.
@@ -17,7 +17,7 @@ single-device).  The model:
   with the backward sweep by XLA's scheduler — BASELINE.json north star).
 
 Validated single-host on the virtual CPU mesh (tests) and via the driver's
-`dryrun_multichip`; real pods only change `initialize()` arguments.
+`dryrun_multichip`; several hosts only change `initialize()` arguments.
 """
 
 from __future__ import annotations
@@ -34,11 +34,12 @@ def initialize(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Bring up the JAX distributed runtime (multi-host pods).
+    """Bring up the JAX distributed runtime (several hosts).
 
-    With no arguments, auto-detects from the environment (TPU pod metadata /
-    cluster env vars); silently a no-op when the runtime is already up or
-    the run is single-process.
+    With no arguments, JAX auto-detects the cluster from its environment
+    (where a cluster manager provides one; otherwise pass the coordinator
+    address, process count and id); silently a no-op when the runtime is
+    already up or the run is single-process.
     """
     # must not touch the backend before jax.distributed.initialize —
     # jax.process_count() would initialise XLA and poison the init.

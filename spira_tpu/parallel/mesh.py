@@ -1,16 +1,17 @@
 """Device-mesh construction and sharding helpers.
 
 The reference has no multi-device execution at all (SURVEY.md §2.8: CPU
-scanline threads + single-GPU thread-per-ray).  The TPU design scales along
+scanline threads + single-GPU thread-per-ray).  This design scales along
 the renderer's natural parallel axes:
 
 * ``tile``  — contiguous pixel-row blocks of the image (the data/context-
-  parallel axis): each chip owns ``height / n_tile`` rows; the scene, BVH and
-  spectral tables are replicated per chip (BASELINE.json north star).
+  parallel axis): each device owns ``height / n_tile`` rows; the scene, BVH
+  and spectral tables are replicated per device (BASELINE.json north star).
 * ``spp``   — Monte-Carlo samples (a pure data-parallel axis): sample ranges
-  are split across chips and mean-reduced with a `psum` over ICI.
+  are split across devices and mean-reduced with a `psum`.
 
-Collectives are XLA's (`psum` etc.) — the NCCL-equivalent per SURVEY.md §5.
+The mesh follows the algorithm alone: the cards of one host reach each
+other all to all over NVLink, and XLA hands the `psum` to NCCL.
 """
 
 from __future__ import annotations

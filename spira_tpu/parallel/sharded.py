@@ -4,7 +4,8 @@ New-build territory per SURVEY.md §2.8 (the reference is single-device): the
 image's pixel rows are sharded over the ``tile`` mesh axis, Monte-Carlo
 samples over the ``spp`` axis; the scene pytree is replicated.  The per-shard
 body is the same `accumulate_rows` loop as the single-chip renderer — the
-only collective is one `psum` (mean over the sample axis), which rides ICI.
+only collective is one `psum` (mean over the sample axis), which XLA hands
+to NCCL between cards.
 
 The per-bounce host sync of the reference wavefront driver
 (`/root/reference/src/spira-metal-optimized.jl:1309`) has no analogue here:
@@ -25,16 +26,11 @@ from ..io import image as img_io
 from ..render import accumulate_rows
 
 
-def _sorted_intersect(engine: str):
-    """intersect_fn for the wavefront shard body: the sorted-packet
-    traversal for engine='bvh_sorted' (+'_interpret'), else the default."""
-    if engine in ("bvh_sorted", "bvh_sorted_interpret"):
-        from ..kernels.bvh_megakernel import make_sorted_tile_intersect
-
-        return make_sorted_tile_intersect(
-            interpret=engine.endswith("interpret")
+def _check_engine(engine: str):
+    if engine not in ("fused", "wavefront"):
+        raise ValueError(
+            f"sharded engine must be 'fused' or 'wavefront', got {engine!r}"
         )
-    return None
 
 
 @lru_cache(maxsize=64)
@@ -42,6 +38,7 @@ def _make_sharded_renderer(
     width, height, mesh, spp, max_depth, seed, semantics, inclusive_uv,
     spectral, engine,
 ):
+    _check_engine(engine)
     n_tile = mesh.shape["tile"]
     n_spp_axis = mesh.shape.get("spp", 1)
     if height % n_tile != 0:
@@ -71,18 +68,6 @@ def _make_sharded_renderer(
                 dv=float(height - 1 if inclusive_uv else height),
             )
             return jax.lax.psum(acc, "spp") / jnp.float32(spp)
-        if engine.startswith("pallas_bvh"):
-            from ..kernels.bvh_megakernel import bvh_rows
-
-            acc = bvh_rows(
-                scene, camera, width=width, height=height,
-                n_rows=rows_per, row_start=t * rows_per,
-                sample_offset=s * spp_per, spp=spp_per,
-                max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
-                interpret=engine.endswith("interpret"),
-                mxu_leaf="mxu" in engine,
-            )
-            return jax.lax.psum(acc, "spp") / jnp.float32(spp)
         acc = accumulate_rows(
             scene,
             camera,
@@ -97,17 +82,13 @@ def _make_sharded_renderer(
             semantics=semantics,
             inclusive_uv=inclusive_uv,
             spectral=spectral,
-            intersect_fn=_sorted_intersect(engine),
         )
-        # Mean over every sample on every spp-shard: one ICI all-reduce.
+        # Mean over every sample on every spp-shard: one all-reduce.
         return jax.lax.psum(acc, "spp") / jnp.float32(spp)
 
     return jax.jit(
-        # check_vma=False: Pallas calls in the shard body (bvh_rows) mix
-        # mesh-varying scalars with replicated tables, which the vma checker
-        # rejects (jax suggests this workaround); psum semantics unchanged
         shard_map(shard_body, mesh=mesh, in_specs=(P(), P()),
-                  out_specs=P("tile"), check_vma=False)
+                  out_specs=P("tile"))
     )
 
 
@@ -120,6 +101,7 @@ def _make_sharded_chunk(
     *traced* global sample offset and returns the radiance **sum** (no mean)
     — the shard body of the progressive/checkpointed multi-chip driver
     (BASELINE config 5: 1920x1080 spp=256 cannot dispatch in one program)."""
+    _check_engine(engine)
     n_tile = mesh.shape["tile"]
     n_spp_axis = mesh.shape.get("spp", 1)
     if height % n_tile != 0:
@@ -145,17 +127,6 @@ def _make_sharded_chunk(
                 du=float(width - 1 if inclusive_uv else width),
                 dv=float(height - 1 if inclusive_uv else height),
             )
-        elif engine.startswith("pallas_bvh"):
-            from ..kernels.bvh_megakernel import bvh_rows
-
-            acc = bvh_rows(
-                scene, camera, width=width, height=height,
-                n_rows=rows_per, row_start=t * rows_per,
-                sample_offset=offset, spp=spp_per, max_depth=max_depth,
-                seed=seed, inclusive_uv=inclusive_uv,
-                interpret=engine.endswith("interpret"),
-                mxu_leaf="mxu" in engine,
-            )
         else:
             acc = accumulate_rows(
                 scene, camera, srng.base_key(seed), width=width,
@@ -163,14 +134,13 @@ def _make_sharded_chunk(
                 sample_offset=offset, n_samples=spp_per, max_depth=max_depth,
                 semantics=semantics, inclusive_uv=inclusive_uv,
                 spectral=spectral,
-                intersect_fn=_sorted_intersect(engine),
             )
         return jax.lax.psum(acc, "spp")
 
     return jax.jit(
         shard_map(
             shard_body, mesh=mesh, in_specs=(P(), P(), P()),
-            out_specs=P("tile"), check_vma=False,
+            out_specs=P("tile"),
         )
     )
 
@@ -209,13 +179,10 @@ def render_flat_sharded(
     """Render to a flat (H*W, 3) HDR buffer, sharded over ``mesh``.
 
     ``engine="fused"`` runs the fused megakernel tracer per shard (sphere
-    scenes, physical semantics) — the multi-chip fast path; images are
+    scenes, physical semantics) — the multi-device fast path; images are
     sharding-invariant because randomness is keyed on global pixel ids and
-    absolute sample indices.  ``"pallas_bvh"`` runs the packet-BVH kernel
-    per shard (mesh scenes; needs ``attach_packed``), ``"pallas_bvh_mxu"``
-    its MXU-superleaf variant (needs ``attach_superleaf``); append
-    ``"_interpret"`` to either for CPU-mesh testing.  ``"bvh_sorted"``
-    (+``"_interpret"``) is the sorted bounce-wavefront estimator.
+    absolute sample indices.  ``"wavefront"`` runs the general estimator
+    (meshes, spectral, reference semantics).
 
     ``height`` must divide by the tile-axis size and ``spp`` by the spp-axis
     size (pad upstream if needed).  The returned array is laid out with
@@ -275,7 +242,6 @@ def _make_row_set_renderer(
             shard_body, mesh=mesh,
             in_specs=(P(), P(), P("tile"), P(), P()),
             out_specs=(P("tile"), P("tile"), P("tile")),
-            check_vma=False,
         )
     )
 

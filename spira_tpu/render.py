@@ -2,10 +2,10 @@
 `SPIRA.render` (`/root/reference/src/spira-metal-optimized.jl:1453-1490`).
 
 Backend selection (the reference's Metal→CUDA→CPU probe chain,
-`:16-279,1460-1479`) collapses to "whatever `jax.devices()` provides": one
-compiled program serves TPU and CPU.  The host-side samples loop of the
-reference (`:1274`) becomes an on-device `lax.scan` with an accumulator
-carry — one dispatch renders the whole frame.
+`:16-279,1460-1479`) collapses to one table keyed by the platform
+`jax.devices()` provides (:data:`ENGINE_TABLE`).  The host-side samples
+loop of the reference (`:1274`) becomes an on-device `lax.scan` with an
+accumulator carry — one dispatch renders the whole frame.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ from .scene.camera import generate_rays
         "semantics",
         "inclusive_uv",
         "spectral",
-        "grad_hook",
     ),
 )
 def render_flat(
@@ -48,40 +47,15 @@ def render_flat(
     semantics: str = "physical",
     inclusive_uv: bool = True,
     spectral: bool = False,
-    grad_hook: bool = True,
 ):
     """Render to a flat (H*W, 3) bottom-up HDR radiance buffer (mean of spp).
 
     Fully on-device: `lax.scan` over samples, each sample generating and
-    tracing a (H*W,) ray wavefront.
-
-    On TPU, packed mesh scenes route intersection through the
-    differentiable packet hook instead of the pure-XLA stackless
-    traversal: the stackless walk standalone runs fine on the chip, but
-    composed into the full spp×bounce render it faults the device
-    (round-4 bisect, `benchmarks/wf_fault_probe.py`).  The hook is
-    bitwise-equivalent (same winner, same differentiable hit recompute —
-    `tests/test_grad.py::test_packet_backward_matches_wavefront_backward_bitwise`)
-    and faster.
-
-    NUMERIC NOTE: the grad-mode hook recomputes the winner's t/normal via
-    Möller–Trumbore rather than reading the kernel's Baldwin–Weber leaf
-    values, so TPU packed-scene images differ in float ulps from
-    `render_flat_bvh_megakernel` and from non-TPU backends.  Forward-only
-    callers can pass ``grad_hook=False`` for the cheaper no-recompute
-    hook (but that path is NOT differentiable — pallas_call has no VJP).
+    tracing a (H*W,) ray wavefront.  Mesh scenes intersect through the
+    stackless BVH walk (`accel/traverse.py`).
     """
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
-    intersect_fn = None
-    if (
-        scene.packed is not None
-        and semantics == "physical"
-        and jax.default_backend() == "tpu"
-    ):
-        from .kernels.bvh_megakernel import make_sorted_tile_intersect
-
-        intersect_fn = make_sorted_tile_intersect(grad=grad_hook)
     base = srng.base_key(seed)
     return accumulate_rows(
         scene,
@@ -97,67 +71,6 @@ def render_flat(
         semantics=semantics,
         inclusive_uv=inclusive_uv,
         spectral=spectral,
-        intersect_fn=intersect_fn,
-    ) / jnp.float32(spp)
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "width", "height", "spp", "max_depth", "inclusive_uv",
-        "interpret", "sort", "tile_h", "pops_per_iter", "spectral",
-    ),
-)
-def render_flat_bvh_sorted(
-    scene,
-    camera,
-    *,
-    width: int,
-    height: int,
-    spp: int = 16,
-    max_depth: int = 4,
-    seed: int = 0,
-    inclusive_uv: bool = True,
-    interpret: bool = False,
-    sort: bool = True,
-    tile_h: int = 32,
-    pops_per_iter: int | None = None,
-    spectral: bool = False,
-):
-    """Sorted bounce-wavefront render: the masked-scan estimator with
-    per-bounce ray regrouping feeding the Pallas packet traversal.
-
-    Every bounce stable-sorts the wavefront by (dead, direction octant)
-    before traversal — scattered rays regain packet coherence and dead
-    rays cluster into packets the kernel skips outright.  Forward-only;
-    requires ``scene.packed``.  Same estimator family as ``render_flat``
-    (threefry streams), so images match the wavefront engine exactly when
-    ``sort=False`` and statistically always.
-    """
-    from .kernels.bvh_megakernel import make_sorted_tile_intersect
-
-    if spp < 1:
-        raise ValueError(f"spp must be >= 1, got {spp}")
-    intersect_fn = make_sorted_tile_intersect(
-        interpret=interpret, tile_h=tile_h, pops_per_iter=pops_per_iter,
-        sort=sort,
-    )
-    base = srng.base_key(seed)
-    return accumulate_rows(
-        scene,
-        camera,
-        base,
-        width=width,
-        height=height,
-        row_start=0,
-        n_rows=height,
-        sample_offset=0,
-        n_samples=spp,
-        max_depth=max_depth,
-        semantics="physical",
-        inclusive_uv=inclusive_uv,
-        spectral=spectral,
-        intersect_fn=intersect_fn,
     ) / jnp.float32(spp)
 
 
@@ -229,6 +142,9 @@ def accumulate_rows(
 
 #: Rec.709 luma weights — the adaptive sampler's convergence statistic.
 _LUMA = jnp.asarray([0.2126, 0.7152, 0.0722], jnp.float32)
+#: Float32 products on the render path ask for full precision: a GPU would
+#: otherwise run them in TF32 and keep about three digits.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @partial(
@@ -286,12 +202,17 @@ def accumulate_row_set(
                 scene, origins, dirs, skey, max_depth=max_depth,
                 semantics=semantics, intersect_fn=intersect_fn,
             )
-        y = radiance @ _LUMA
+        y = jnp.dot(radiance, _LUMA, precision=_HIGHEST)
         return (acc + radiance, lum + y, lum2 + y * y), None
 
     n = int(rows.shape[0]) * width
-    zero3 = jnp.zeros((n, 3), jnp.float32)
-    zero1 = jnp.zeros((n,), jnp.float32)
+    # the no-op term types the init as varying over the mesh axes that
+    # ``rows`` and ``sample_base`` vary over under shard_map (see
+    # accumulate_rows)
+    zero1 = jnp.zeros((n,), jnp.float32) + jnp.float32(0) * (
+        rows[0] + sample_base
+    )
+    zero3 = jnp.zeros((n, 3), jnp.float32) + zero1[:, None]
     (acc, lum, lum2), _ = jax.lax.scan(
         sample_step, (zero3, zero1, zero1), jnp.arange(n_samples)
     )
@@ -348,7 +269,7 @@ def accumulate_block_set(
                 scene, origins, dirs, skey, max_depth=max_depth,
                 semantics=semantics, intersect_fn=intersect_fn,
             )
-        y = radiance @ _LUMA
+        y = jnp.dot(radiance, _LUMA, precision=_HIGHEST)
         return (acc + radiance, lum + y, lum2 + y * y), None
 
     n = int(blocks.shape[0]) * block_w
@@ -360,53 +281,68 @@ def accumulate_block_set(
     return acc, lum, lum2
 
 
+#: The engine ``"auto"`` resolves to, by platform and scene kind.  A scene
+#: is ``small`` when the fused tracers take it (spheres plus at most
+#: ``FUSED_TRI_LIMIT`` triangles, no BVH, physical semantics) and renders
+#: RGB, ``small_spectral`` when such a scene renders spectrally, and
+#: ``general`` otherwise (meshes, reference semantics).  On the GPU the
+#: RGB megakernel runs as a Triton kernel; the spectral tracer stays fused
+#: XLA, which measured faster than its Triton form (PERF.md).
+ENGINE_TABLE = {
+    "gpu": {"small": "pallas", "small_spectral": "fused",
+            "general": "wavefront"},
+    "cpu": {"small": "fused", "small_spectral": "fused",
+            "general": "wavefront"},
+}
+
+#: Every engine a caller may name.
+ENGINES = ("pallas", "fused", "wavefront")
+
+
+def engine_row(platform: str | None = None) -> dict:
+    """The :data:`ENGINE_TABLE` row of ``platform`` (default: JAX's
+    backend).  A platform with no row is an error, not a default."""
+    platform = platform or jax.default_backend()
+    if platform not in ENGINE_TABLE:
+        raise ValueError(
+            f"no engine row for platform {platform!r} "
+            f"(known: {sorted(ENGINE_TABLE)})"
+        )
+    return ENGINE_TABLE[platform]
+
+
 def select_engine(
-    scene, semantics: str, spectral: bool, engine: str = "auto", camera=None
+    scene, semantics: str, spectral: bool, engine: str = "auto",
+    platform: str | None = None,
 ):
     """Resolve the execution engine.
 
-    * ``pallas``     — fused Pallas megakernel (TPU; small scenes, physical)
-    * ``pallas_bvh`` — packet-traversal BVH megakernel (TPU; mesh scenes
-      with packed pair tables, physical)
-    * ``pallas_spectral_bvh`` — the spectral packet kernel (TPU; packed
-      mesh scenes with spectral transport in one dispatch)
-    * ``fused``      — same fused tracer as one XLA computation (any backend)
-    * ``wavefront``  — the general masked-scan estimator (triangles/BVH,
-      spectral transport, reference semantics, thin-lens cameras, gradients
+    * ``pallas``    — the fused tracer as one Pallas kernel through Triton
+      (small scenes, physical semantics, RGB)
+    * ``fused``     — the same tracer as one XLA computation (any backend,
+      differentiable)
+    * ``wavefront`` — the general masked-scan estimator (triangle meshes
+      through the BVH, spectral transport, reference semantics, gradients
       with overrides)
 
-    ``bvh_sorted`` is accepted but is not a peer engine: it is the
-    per-bounce ray-regrouping *intersect hook* the adaptive/wavefront
-    drivers use (see :func:`render_flat_bvh_sorted`).  The retired MXU
-    experiments (``pallas_mxu``, ``pallas_bvh_mxu``) remain callable for
-    reproducibility — measured slower than ``pallas_bvh`` at every tier;
-    see :mod:`spira_tpu.experiments` for the post-mortem.
+    ``auto`` looks the scene's kind up in :data:`ENGINE_TABLE`.
     """
     if engine != "auto":
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r} (known: {ENGINES})")
         return engine
     from .kernels.megakernel import FUSED_TRI_LIMIT
 
-    if (
-        scene.packed is not None
-        and semantics == "physical"
-        and jax.default_backend() == "tpu"
-    ):
-        # spectral mesh scenes get the spectral packet kernel (one Pallas
-        # dispatch) instead of dropping to the wavefront path
-        return "pallas_spectral_bvh" if spectral else "pallas_bvh"
-    fusable = (
+    # thin-lens cameras stay on the fused engines: trace_tile's raygen
+    # samples the lens disk from the raygen draw's spare PCG outputs
+    small = (
         scene.bvh is None
         and scene.triangles.count <= FUSED_TRI_LIMIT
         and (scene.spheres.count + scene.triangles.count) > 0
+        and semantics == "physical"
     )
-    # thin-lens cameras stay on the fast engines: trace_tile's raygen
-    # samples the lens disk from the raygen draw's spare PCG outputs
-    # (camera.has_lens is a static construction-time flag — reading the
-    # traced lens_radius here would be a blocking device sync per dispatch)
-    if fusable and semantics == "physical":
-        # spectral included: the Chebyshev fused tracer has a Pallas wrapper
-        return "pallas" if jax.default_backend() == "tpu" else "fused"
-    return "wavefront"
+    kind = ("small_spectral" if spectral else "small") if small else "general"
+    return engine_row(platform)[kind]
 
 
 def render_flat_engine(
@@ -416,107 +352,38 @@ def render_flat_engine(
     """render_flat with engine dispatch (same estimator family; the fused
     engines use the PCG4D RNG stream, the wavefront engine threefry — images
     agree statistically, not bitwise)."""
-    engine = select_engine(scene, semantics, spectral, engine, camera=camera)
-    if engine in ("pallas_bvh", "pallas_bvh_mxu", "pallas_mxu") and (
-        spectral or semantics != "physical"
-    ):
-        raise ValueError(
-            f"engine {engine!r} renders physical-semantics RGB only; "
-            "use engine='pallas_spectral_bvh' for spectral mesh scenes, "
-            "or 'wavefront' (or 'auto') for reference semantics"
-        )
-    if engine == "pallas_spectral_bvh":
+    engine = select_engine(scene, semantics, spectral, engine)
+    kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
+              seed=seed, inclusive_uv=inclusive_uv)
+    if engine in ("pallas", "fused"):
         if semantics != "physical":
             raise ValueError(
-                "pallas_spectral_bvh renders physical semantics only"
-            )
-        from .kernels.spectral_bvh import render_flat_spectral_bvh_megakernel
-
-        return render_flat_spectral_bvh_megakernel(
-            scene, camera, width=width, height=height, spp=spp,
-            max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
-        )
-    if engine == "pallas_bvh":
-        from .kernels.bvh_megakernel import render_flat_bvh_megakernel
-
-        return render_flat_bvh_megakernel(
-            scene, camera, width=width, height=height, spp=spp,
-            max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
-        )
-    if engine == "pallas_bvh_mxu":
-        from .accel.mxu import SuperleafBVH, attach_superleaf
-        from .kernels.bvh_megakernel import render_flat_bvh_megakernel
-
-        if not isinstance(scene.wide, SuperleafBVH):
-            # host-side packing; attach once outside render loops
-            scene = attach_superleaf(scene)
-        return render_flat_bvh_megakernel(
-            scene, camera, width=width, height=height, spp=spp,
-            max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
-            mxu_leaf=True,
-        )
-    if engine in ("bvh_sorted", "bvh_sorted_interpret"):
-        if semantics != "physical":
-            raise ValueError(
-                "bvh_sorted renders physical semantics only; use "
+                f"engine {engine!r} renders physical semantics only; use "
                 "'wavefront' (or 'auto') for reference semantics"
             )
-        return render_flat_bvh_sorted(
-            scene, camera, width=width, height=height, spp=spp,
-            max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
-            spectral=spectral, interpret=engine.endswith("interpret"),
-        )
-    if engine == "pallas_mxu":
-        from .accel.mxu import MXUBVH, attach_mxu
-        from .kernels.mxu_megakernel import render_flat_mxu_megakernel
-
-        if not isinstance(scene.wide, MXUBVH):
-            # host-side packing; attach once outside render loops.
-            # isinstance, not hasattr: SuperleafBVH (the pallas_bvh_mxu
-            # packing) also carries coeff blocks but not MXUBVH's node table
-            scene = attach_mxu(scene)
-        return render_flat_mxu_megakernel(
-            scene, camera, width=width, height=height, spp=spp,
-            max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
-        )
-    if engine in ("pallas", "fused"):
         if spectral:
-            # spectral engines (Chebyshev SPDs): same tracer as one Mosaic
-            # program per tile (pallas) or one fused XLA computation
-            from .kernels.spectral_fused import (
-                render_flat_fused_spectral,
-                render_flat_spectral_megakernel,
-            )
+            if engine == "pallas":
+                raise ValueError(
+                    "engine 'pallas' renders RGB only; spectral small "
+                    "scenes use 'fused'"
+                )
+            from .kernels.spectral_fused import render_flat_fused_spectral
 
-            fn = (
-                render_flat_spectral_megakernel
-                if engine == "pallas"
-                else render_flat_fused_spectral
-            )
-            return fn(
-                scene, camera, width=width, height=height, spp=spp,
-                max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
-            )
+            return render_flat_fused_spectral(scene, camera, **kw)
         from .kernels.megakernel import (
             render_flat_fused,
             render_flat_megakernel,
         )
 
         fn = render_flat_megakernel if engine == "pallas" else render_flat_fused
-        return fn(
-            scene, camera, width=width, height=height, spp=spp,
-            max_depth=max_depth, seed=seed, inclusive_uv=inclusive_uv,
-        )
+        return fn(scene, camera, **kw)
     return render_flat(
-        scene, camera, width=width, height=height, spp=spp,
-        max_depth=max_depth, seed=seed, semantics=semantics,
-        inclusive_uv=inclusive_uv, spectral=spectral,
+        scene, camera, semantics=semantics, spectral=spectral, **kw
     )
 
 
 # ----------------------------------------------------------------------------
-# Hybrid differentiable MESH render: packet-BVH Pallas forward, wavefront
-# backward (the mesh analogue of megakernel.render_flat_hybrid_grad)
+# Hybrid differentiable MESH render: full-spp forward, grad_spp backward
 # ----------------------------------------------------------------------------
 
 from functools import lru_cache as _lru_cache
@@ -524,68 +391,24 @@ from functools import lru_cache as _lru_cache
 
 @_lru_cache(maxsize=None)
 def _hybrid_mesh_vjp_fn(width, height, spp, grad_spp, max_depth,
-                        inclusive_uv, fwd_engine, bwd_engine,
-                        spectral=False):
+                        inclusive_uv, spectral=False):
     """custom_vjp closure over the static render config (cached per config).
 
-    Forward runs the packet-BVH Pallas megakernel (wavefront on non-TPU
-    backends); backward replays the wavefront *estimator* via its VJP at
-    ``grad_spp`` samples, with one of two intersect providers:
-
-    * ``bwd_engine="packet"`` (TPU default) — the differentiable packet
-      hook (`make_sorted_tile_intersect(grad=True)`): traversal runs as a
-      stop-gradient Pallas kernel that reports the winning triangle; the
-      hit is recomputed differentiably from the winner.  This exists
-      because the pure-XLA stackless traversal FAULTS the real chip on
-      mesh scenes (round-3 `meshgrad` battery crash, bisected round-4 to
-      the forward `intersect_bvh` while_loop itself) — and it is also the
-      faster replay.
-    * ``bwd_engine="wavefront"`` (non-TPU default) — the stackless
-      `accel/traverse.py` walk with differentiable winner recompute.
-
-    Either way gradients flow to materials, camera and geometry.  Unlike
-    the sphere hybrid, forward and backward draw from different RNG
-    families (PCG4D vs threefry): the backward is an unbiased
-    independent-stream estimator of the expected-loss gradient rather
-    than the exact gradient of the forward sample — the standard
-    stochastic-rendering-gradient setup.
+    Forward renders ``spp`` samples on the engine table's ``general``
+    engine (the wavefront estimator); backward replays the first
+    ``grad_spp`` of them through the wavefront's VJP.  Intersection is the
+    stackless BVH walk with a differentiable winner recompute, so
+    gradients flow to materials, camera and geometry.  With ``grad_spp ==
+    spp`` the backward is the exact gradient of the forward sample; with
+    fewer it is the unbiased subsampled estimator.
     """
     kw = dict(width=width, height=height, max_depth=max_depth,
-              inclusive_uv=inclusive_uv)
+              inclusive_uv=inclusive_uv, semantics="physical",
+              spectral=spectral)
 
     @jax.custom_vjp
     def f(scene, camera, seed):
-        if spectral and fwd_engine in ("pallas_bvh", "pallas_bvh_interpret"):
-            from .kernels.spectral_bvh import (
-                render_flat_spectral_bvh_megakernel,
-            )
-
-            return render_flat_spectral_bvh_megakernel(
-                scene, camera, spp=spp, seed=seed,
-                interpret=fwd_engine.endswith("interpret"), **kw
-            )
-        if spectral:
-            return render_flat(
-                scene, camera, spp=spp, seed=seed, semantics="physical",
-                spectral=True, **kw
-            )
-        if fwd_engine in ("pallas_bvh", "pallas_bvh_interpret"):
-            from .kernels.bvh_megakernel import render_flat_bvh_megakernel
-
-            return render_flat_bvh_megakernel(
-                scene, camera, spp=spp, seed=seed,
-                interpret=fwd_engine.endswith("interpret"), **kw
-            )
-        if fwd_engine in ("pallas_bvh_mxu", "pallas_bvh_mxu_interpret"):
-            from .kernels.bvh_megakernel import render_flat_bvh_megakernel
-
-            return render_flat_bvh_megakernel(
-                scene, camera, spp=spp, seed=seed, mxu_leaf=True,
-                interpret=fwd_engine.endswith("interpret"), **kw
-            )
-        return render_flat(
-            scene, camera, spp=spp, seed=seed, semantics="physical", **kw
-        )
+        return render_flat(scene, camera, spp=spp, seed=seed, **kw)
 
     def fwd(scene, camera, seed):
         return f(scene, camera, seed), (scene, camera, seed)
@@ -593,25 +416,8 @@ def _hybrid_mesh_vjp_fn(width, height, spp, grad_spp, max_depth,
     def bwd(res, g):
         scene, camera, seed = res
 
-        if bwd_engine.startswith("packet"):
-            from .kernels.bvh_megakernel import make_sorted_tile_intersect
-
-            intersect_fn = make_sorted_tile_intersect(
-                grad=True, interpret=bwd_engine.endswith("interpret"),
-            )
-        else:
-            intersect_fn = None  # intersect_scene: stackless traversal
-
         def replay(sc, cam):
-            base = srng.base_key(seed)
-            acc = accumulate_rows(
-                sc, cam, base, width=width, height=height, row_start=0,
-                n_rows=height, sample_offset=0, n_samples=grad_spp,
-                max_depth=max_depth, semantics="physical",
-                inclusive_uv=inclusive_uv, spectral=spectral,
-                intersect_fn=intersect_fn,
-            )
-            return acc / jnp.float32(grad_spp)
+            return render_flat(sc, cam, spp=grad_spp, seed=seed, **kw)
 
         _, vjp = jax.vjp(replay, scene, camera)
         d_scene, d_camera = vjp(g)
@@ -632,43 +438,25 @@ def render_flat_hybrid_grad_mesh(
     seed: int = 0,
     grad_spp: int | None = None,
     inclusive_uv: bool = True,
-    engine: str | None = None,
-    bwd: str | None = None,
     spectral: bool = False,
 ):
-    """Differentiable MESH render at packet-BVH Pallas-forward speed.
+    """Differentiable MESH render with a cheaper backward.
 
-    Forward: the packet-BVH megakernel (or its MXU-superleaf variant via
-    ``engine="pallas_bvh_mxu"``).  Backward: the wavefront estimator's VJP
+    Forward: the wavefront estimator at ``spp`` samples.  Backward: its VJP
     over ``grad_spp`` samples (default: ``spp``), through a stop-gradient
     traversal + differentiable winner recompute — so material, camera AND
     geometry gradients flow for arbitrarily large meshes.  Extends
     BASELINE's "pixel gradients w.r.t. material SPDs, geometry, and
-    camera" to the fast mesh engine (reference has no differentiable path
-    at all).
+    camera" to meshes (the reference has no differentiable path at all).
 
-    ``bwd``: the backward's intersect provider — ``"packet"`` (traversal
-    as a stop-gradient Pallas kernel; the TPU default — the pure-XLA
-    stackless walk faults the real chip on mesh scenes and compiles ~15×
-    slower), ``"packet_interpret"``, or ``"wavefront"`` (the stackless
-    XLA walk; default off-TPU).
-
-    ``spectral=True``: the SPECTRAL mesh hybrid — spectral packet-BVH
-    Pallas forward (`kernels/spectral_bvh.py`), spectral wavefront replay
-    backward through the same intersect provider; gradients flow to
+    ``spectral=True``: the SPECTRAL mesh hybrid — gradients flow to the
     material SPD tables, camera and geometry (BASELINE configs 2+3+4
-    combined; the reference claims spectral in docs only).
+    combined).
     """
-    if engine is None:
-        engine = (
-            "pallas_bvh" if jax.default_backend() == "tpu" else "wavefront"
-        )
-    if bwd is None:
-        bwd = "packet" if jax.default_backend() == "tpu" else "wavefront"
     f = _hybrid_mesh_vjp_fn(
         width, height, spp,
         grad_spp if grad_spp is not None else spp,
-        max_depth, inclusive_uv, engine, bwd, spectral,
+        max_depth, inclusive_uv, spectral,
     )
     return f(scene, camera, jnp.int32(seed))
 
@@ -740,7 +528,7 @@ def render(
 def render_hybrid_gpu(scene, camera, width, height, **kw):
     """Compatibility alias for the reference's accelerated entry point
     (`render_hybrid_gpu`, /root/reference/src/spira-metal-optimized.jl:1228):
-    the engine-dispatched accelerated render (pallas/fused on TPU)."""
+    the engine-dispatched accelerated render (see :data:`ENGINE_TABLE`)."""
     return render(scene, camera, width, height, **kw)
 
 

@@ -1,47 +1,20 @@
-"""The Stanford-bunny tier (BASELINE config 3).
+"""The bunny tier (BASELINE config 3).
 
-The reference's test downloads the real bunny OBJ at test time
-(`/root/reference/tests/bunny-test.jl:9-34`, graphics.stanford.edu, no
-vendored fixture).  :func:`download_bunny` keeps that behavior (and caches
-the file); because build/CI environments are frequently offline, every
-consumer must handle ``None`` and fall back to :func:`procedural_bunny` —
-a bunny-class mesh (~66k triangles across 9 sub-meshes, matching the real
-bunny's 69k scale) built from deformed icospheres, exercising exactly the
-same machinery: two-level BVH over multiple meshes, packet traversal over
-VMEM tables, 69k-scale leaf tables.
+The reference's test downloads the real Stanford bunny OBJ at test time
+(`/root/reference/tests/bunny-test.jl:9-34`).  Nothing here touches the
+network: a caller with the real OBJ on disk passes its path, and the
+default is :func:`procedural_bunny` — a bunny-class mesh (72,960 triangles
+across 9 sub-meshes, matching the real bunny's 69k scale) built from
+deformed icospheres, exercising the same machinery: a two-level BVH over
+multiple meshes and 69k-scale leaf tables.
 """
 
 from __future__ import annotations
-
-import os
-import urllib.request
 
 import numpy as np
 
 from .geometry import Triangles, concat_triangles, make_triangles
 from .obj import icosphere_mesh, load_obj_mesh
-
-BUNNY_URL = "https://graphics.stanford.edu/~mdfisher/Data/Meshes/bunny.obj"
-_CACHE = os.path.expanduser("~/.cache/spira_tpu/bunny.obj")
-
-
-def download_bunny(dest: str | None = None, timeout: float = 30.0):
-    """Fetch the real Stanford bunny OBJ (reference behavior); returns the
-    local path, or ``None`` when offline / fetch fails."""
-    dest = dest or _CACHE
-    if os.path.exists(dest):
-        return dest
-    try:
-        os.makedirs(os.path.dirname(dest), exist_ok=True)
-        with urllib.request.urlopen(BUNNY_URL, timeout=timeout) as r:
-            data = r.read()
-        if len(data) < 1000:
-            return None
-        with open(dest, "wb") as f:
-            f.write(data)
-        return dest
-    except Exception:
-        return None
 
 
 def _part(subdivisions, scale3, rotate_deg, translate, material=0,
@@ -107,23 +80,16 @@ def procedural_bunny(material: int = 0, scale: float = 1.0):
     return parts
 
 
-def create_bunny_scene(
-    obj_path: str | None = None,
-    *,
-    allow_download: bool = True,
-    leaf_size: int = 8,  # v5e round-4 optimum (22.4 vs 18.7 Mrays/s at 16)
-    pack: bool = True,
-):
-    """Config-3 scene: the bunny (real OBJ when available, else the
-    procedural stand-in) over a ground sphere under the demo light, with a
-    two-level BVH and (optionally) packed pair tables for the Pallas packet
-    megakernel.
+def create_bunny_scene(obj_path: str | None = None):
+    """Config-3 scene: the bunny (the OBJ at ``obj_path`` when given, else
+    the procedural stand-in) over a ground sphere under the demo light,
+    with a two-level BVH at the builder's default leaf size.
 
-    Returns (scene, info) where info records which mesh was used and its
-    triangle count.
+    Returns (scene, info) where info records which mesh was used, its
+    triangle count, its node count and which builder built the trees.
     """
     from ..accel.bvh import build_two_level
-    from ..accel.pairs import attach_packed
+    from ..accel.native import last_builder
     from .materials import make_materials
     from .geometry import make_spheres
     from .scene import make_scene
@@ -135,8 +101,6 @@ def create_bunny_scene(
             dict(albedo=(1.0, 1.0, 1.0), emission=(5.0, 5.0, 5.0)),
         ]
     )
-    if obj_path is None and allow_download:
-        obj_path = download_bunny()
     if obj_path is not None:
         mesh = load_obj_mesh(
             obj_path, material=0, center=True, normalize=True, scale=0.8,
@@ -148,7 +112,7 @@ def create_bunny_scene(
         parts = procedural_bunny(material=0, scale=0.62)
         source = "procedural"
 
-    bvh, triangles = build_two_level(parts, leaf_size=leaf_size)
+    bvh, triangles = build_two_level(parts)
     spheres = make_spheres(
         [
             # ground top at y=0 so the bunny's feet rest on it
@@ -159,10 +123,8 @@ def create_bunny_scene(
     scene = make_scene(
         spheres=spheres, triangles=triangles, materials=materials, bvh=bvh
     )
-    if pack:
-        scene = attach_packed(scene)
     info = dict(source=source, triangles=int(triangles.count),
-                nodes=int(bvh.node_count))
+                nodes=int(bvh.node_count), builder=last_builder())
     return scene, info
 
 

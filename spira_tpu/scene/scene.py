@@ -194,13 +194,7 @@ def create_mesh_scene(obj_path: str | None = None, subdivisions: int = 3) -> Sce
         )
     mirror = icosphere(center=(1.3, 0.0, -0.6), radius=0.45, subdivisions=2,
                        material=3)
-    # leaf size by mesh scale (round-4 v5e sweep): small trees want few,
-    # full 2-row leaves (leaf=16: 76 vs 69 Mrays/s @1.6k tris); big trees
-    # want single-row leaves — half the per-visit cost beats the ~1.3x
-    # extra visits (leaf=8: 46.8 vs 36.3 @5.4k, 22.4 vs 18.7 @73k).
-    n_tris = int(mesh.count) + 320  # + mirror icosphere
-    bvh, triangles = build_two_level(
-        [mesh, mirror], leaf_size=16 if n_tris < 4000 else 8)
+    bvh, triangles = build_two_level([mesh, mirror])
     spheres = make_spheres(
         [
             ((0.0, -100.5, 0.0), 100.0, 1),

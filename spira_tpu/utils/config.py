@@ -66,16 +66,10 @@ class RenderConfig:
         return cls(**d)
 
 
-#: Canonical engine list — the ONE place engines are enumerated (the CLI,
-#: RenderConfig and docs all point here; `render.select_engine` resolves
-#: "auto").  The trailing entries are retired-but-callable experiments
-#: (`spira_tpu.experiments` post-mortem) kept for reproducibility.
-ENGINE_CHOICES = (
-    "auto", "pallas", "pallas_bvh", "pallas_spectral_bvh", "fused",
-    "wavefront", "bvh_sorted",
-    # retired experiments (measured slower; excluded from auto dispatch):
-    "pallas_mxu", "pallas_bvh_mxu",
-)
+#: Engines the CLI and RenderConfig accept: ``auto`` plus every engine of
+#: `render.ENGINES` (`render.select_engine` resolves ``auto`` through the
+#: platform's row of `render.ENGINE_TABLE`).
+ENGINE_CHOICES = ("auto", "pallas", "fused", "wavefront")
 
 
 #: Quality tiers mirroring the reference's config ladder: `quick` is its
@@ -110,9 +104,8 @@ def add_render_args(p: argparse.ArgumentParser) -> None:
                    choices=["full", "preview", "normal"],
                    help="full path tracing, or single-bounce quick looks")
     p.add_argument("--engine", default="auto", choices=list(ENGINE_CHOICES),
-                   help="execution engine (auto picks per scene/backend; "
-                        "the pallas_*mxu engines are retired experiments — "
-                        "see spira_tpu.experiments)")
+                   help="execution engine (auto picks per scene and "
+                        "platform)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tonemap", default="gamma",
                    choices=["gamma", "aces", "none"])
@@ -203,26 +196,6 @@ def build_scene(cfg: RenderConfig):
         scene = create_mesh_scene(obj_path=cfg.scene)
     else:
         raise ValueError(f"unknown scene {cfg.scene!r}")
-    # every engine that feeds the packet traversal needs the pair tables;
-    # spectral counts too (auto spectral mesh → pallas_spectral_bvh).  The
-    # sharded/progressive drivers (n_tile / checkpoint) ignore --engine and
-    # stay on the wavefront family, so they skip the packing.
-    wants_packet_kernel = (
-        cfg.engine in ("auto", "pallas_bvh", "pallas_spectral_bvh",
-                       "bvh_sorted")
-        and cfg.n_tile is None
-        and not cfg.checkpoint_dir
-        and cfg.checkpoint_every <= 0
-        and cfg.semantics == "physical"
-    )
-    if wants_packet_kernel and scene.bvh is not None and scene.packed is None:
-        # pack pair tables once at build time so the packet megakernel is
-        # auto-selectable (host-side NumPy, like the reference's
-        # serialize_scene_for_gpu); skipped for the wavefront-family
-        # drivers, which would otherwise replicate unused tables
-        from ..accel.pairs import attach_packed
-
-        scene = attach_packed(scene)
     camera = make_camera(
         lookfrom=cfg.lookfrom,
         lookat=cfg.lookat,

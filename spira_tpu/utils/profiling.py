@@ -10,7 +10,7 @@ import jax
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
-    """Capture a device profile (XLA/TPU trace) viewable in TensorBoard /
+    """Capture a device profile (XLA trace) viewable in TensorBoard /
     Perfetto.  Wrap the region of interest:
 
         with profile_trace("/tmp/spira-trace"):

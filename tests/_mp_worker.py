@@ -2,7 +2,7 @@
 
 Launched N times by tests/test_multiprocess.py.  Each process owns 4
 virtual CPU devices; together they form one 8-device global mesh — the
-same topology as a 2-host TPU slice, exercising `jax.distributed`
+same topology as two 4-card hosts, exercising `jax.distributed`
 coordination, cross-process collectives (psum over the spp axis, gradient
 all-reduce) and `process_allgather` (`parallel.distributed.gather_image`).
 
@@ -91,29 +91,25 @@ np.save(os.path.join(outdir, f"grads_{proc_id}.npy"), grads)
 print(f"worker {proc_id}: ok image={img.shape} gmax={np.abs(grads).max():.6f}",
       flush=True)
 
-# ---- phase 2: the PRODUCTION MESH PATH across the process boundary
-# (round-4 verdict gap: the packet engine + packet-hook backward had only
-# ever run multi-device inside one process).  Sharded packet-BVH forward
-# (bvh_rows under shard_map, interpret mode on CPU) + one train step whose
-# backward replays through the differentiable packet hook, with the
-# gradient all-reduce crossing processes.
-from spira_tpu.accel.pairs import attach_packed  # noqa: E402
+# ---- phase 2: the MESH PATH across the process boundary.  Sharded
+# wavefront forward through the stackless BVH walk + one train step whose
+# backward replays through the same walk, with the gradient all-reduce
+# crossing processes.
 from spira_tpu.diff.inverse import make_inverse_step  # noqa: E402
 from spira_tpu.parallel.mesh import replicate  # noqa: E402
 from spira_tpu.parallel.sharded import render_flat_sharded as _rfs  # noqa: E402
 from spira_tpu.scene.scene import create_mesh_scene  # noqa: E402
 
-mscene = replicate(attach_packed(create_mesh_scene(subdivisions=1)), mesh)
+mscene = replicate(create_mesh_scene(subdivisions=1), mesh)
 mcam = replicate(cam, mesh)
 mflat = _rfs(
     mscene, mcam, width=W, height=H, mesh=mesh, spp=SPP, max_depth=DEPTH,
-    engine="pallas_bvh_interpret",
+    engine="wavefront",
 )
 mimg = dist.gather_image(mflat)
 
 mstep, minit = make_inverse_step(
     width=W, height=H, spp=SPP, max_depth=DEPTH, mesh=mesh,
-    intersect="packet_interpret",
 )
 mparams = {"albedo": mscene.materials.albedo * 0.5}
 mopt = minit(mparams)

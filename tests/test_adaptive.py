@@ -3,7 +3,7 @@ sampling once their pixels' luminance CI95 converges — a new-build
 capability (the reference samples uniformly; SURVEY.md lists no adaptive
 machinery).
 
-TPU-shaped adaptivity: one dense row-set dispatch per round
+Dense adaptivity: one row-set dispatch per round
 (render.accumulate_row_set) over only the unconverged rows, padded to
 powers of two so compile count is bounded."""
 
@@ -135,27 +135,29 @@ def test_adaptive_checkpoint_resume_is_exact(tmp_path):
 
 
 def test_adaptive_mesh_scene_with_packet_intersect():
-    """Adaptive driver on a packed mesh scene, every bounce's nearest-hit
-    through the sorted-packet traversal (interpret mode on CPU): finite,
+    """Adaptive driver on a BVH mesh scene, every bounce's nearest-hit
+    through the default intersect (the stackless BVH walk): finite,
     deterministic, and statistically consistent with the uniform wavefront
     render of the same scene."""
-    from spira_tpu.accel.pairs import attach_packed
-    from spira_tpu.io import image as img_io
-    from spira_tpu.kernels.bvh_megakernel import make_sorted_tile_intersect
+    from spira_tpu.accel.bvh import build_bvh
+    from spira_tpu.core.types import replace
     from spira_tpu.render import render_flat
     from spira_tpu.scene.camera import make_camera
+    from spira_tpu.scene.geometry import triangle_bounds
     from spira_tpu.scene.scene import create_mesh_scene
 
-    scene = attach_packed(create_mesh_scene(subdivisions=1))
+    # leaf<=4 rebuild: the walk's compile scales with the leaf unroll
+    scene = create_mesh_scene(subdivisions=0)
+    lo, hi = triangle_bounds(scene.triangles)
+    scene = replace(
+        scene, bvh=build_bvh(np.asarray(lo), np.asarray(hi), leaf_size=4)
+    )
     cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
                       aspect_ratio=64.0 / 32.0)
     cfg = RenderConfig(width=64, height=32, spp=8, max_depth=2,
                        progress=False)
-    isect = make_sorted_tile_intersect(interpret=True, tile_h=8)
-    a = render_adaptive(scene, cam, cfg, tol=0.1, min_spp=2, chunk=2,
-                        intersect_fn=isect)
-    b = render_adaptive(scene, cam, cfg, tol=0.1, min_spp=2, chunk=2,
-                        intersect_fn=isect)
+    a = render_adaptive(scene, cam, cfg, tol=0.1, min_spp=2, chunk=2)
+    b = render_adaptive(scene, cam, cfg, tol=0.1, min_spp=2, chunk=2)
     np.testing.assert_array_equal(a, b)
     assert np.isfinite(a).all() and a.std() > 1e-3
     from spira_tpu.io.image import assemble_image

@@ -302,9 +302,9 @@ def test_sbvh_spatial_splits_nearest_hit_parity():
 
 def test_row_granular_sah_parity_and_fill():
     """Row-granular SAH (row_size=8) finds the same nearest hits as the
-    per-primitive SAH tree while packing leaves fuller (the packet kernel
-    pays one fixed 8-triangle row per leaf visit, so fill == fewer visits;
-    measured +10-13% on v5e mesh tiers)."""
+    per-primitive SAH tree while packing leaves fuller (a traversal that
+    pays one fixed 8-triangle row per leaf visit makes fill == fewer
+    visits)."""
     import numpy as np
 
     from spira_tpu.accel.bvh import build_bvh_for_triangles

@@ -1,35 +1,16 @@
-"""Packet-traversal BVH megakernel: exhaustive equivalence tests.
+"""Pair-table BVH packing (host-side NumPy): oracle tests.
 
 The reference's own broken traversal (left child never pushed,
 /root/reference/examples/spira-metal-raytracer.jl:606) motivates the
-differential-testing ladder here: numpy pair-table oracle vs brute force,
-Pallas packet traversal (interpret mode) vs the stack-traversal oracle, and
-the full megakernel vs the fused engine on a scene both can render.
+differential testing here: the NumPy pair-table oracle against brute force,
+and the Baldwin-Weber leaf operands against Moller-Trumbore.
 """
 
 import numpy as np
-import pytest
-
-import jax
-import jax.numpy as jnp
 
 from spira_tpu.accel.bvh import build_bvh_for_triangles, build_two_level
-from spira_tpu.accel.pairs import (
-    attach_packed,
-    pack_bvh,
-    traverse_packed_numpy,
-)
-from spira_tpu.accel.traverse import intersect_bvh_stack
-from spira_tpu.kernels.bvh_megakernel import (
-    intersect_tile,
-    render_flat_bvh_megakernel,
-)
-from spira_tpu.kernels.megakernel import render_flat_fused
-from spira_tpu.scene.camera import default_camera, make_camera
+from spira_tpu.accel.pairs import pack_bvh, traverse_packed_numpy
 from spira_tpu.scene.obj import icosphere
-from spira_tpu.scene.scene import create_mesh_scene, make_scene
-from spira_tpu.scene.materials import make_materials
-from spira_tpu.scene.geometry import make_spheres
 
 
 def _random_rays(n, seed=0, spread=2.5):
@@ -93,236 +74,6 @@ def test_pack_oracle_two_level_redirects():
             assert abs(t - t_ref[k]) < 1e-3, (k, t, t_ref[k])
 
 
-def test_packet_kernel_matches_stack_traversal():
-    """The Pallas traversal (interpret mode) against the wavefront stack
-    oracle over a full 1024-ray tile — hit t, normal, and material."""
-    m0 = icosphere(center=(-0.6, 0.1, 0.0), radius=0.55, subdivisions=2,
-                   material=0)
-    m1 = icosphere(center=(0.8, -0.2, 0.3), radius=0.45, subdivisions=1,
-                   material=1)
-    bvh, tris = build_two_level([m0, m1])
-    packed = pack_bvh(bvh, tris)
-    origins, dirs = _random_rays(1024, seed=3, spread=2.0)
-
-    t_pk, n_pk, mid_pk = intersect_tile(packed, origins, dirs, interpret=True)
-    hit_oracle = intersect_bvh_stack(
-        bvh, tris, jnp.asarray(origins), jnp.asarray(dirs)
-    )
-    t_pk = np.asarray(t_pk)
-    t_or = np.asarray(hit_oracle.t)
-    hit_or = np.asarray(hit_oracle.hit)
-
-    miss_pk = t_pk >= 1e19  # kernel INF sentinel is 1e20, not IEEE inf
-    assert (miss_pk == ~hit_or).all()
-    np.testing.assert_allclose(
-        t_pk[hit_or], t_or[hit_or], rtol=1e-4, atol=1e-5
-    )
-    n_or = np.asarray(hit_oracle.normal)
-    np.testing.assert_allclose(
-        np.asarray(n_pk)[hit_or], n_or[hit_or], rtol=1e-4, atol=1e-5
-    )
-    mat_or = np.asarray(hit_oracle.material)
-    assert (np.asarray(mid_pk)[hit_or] == mat_or[hit_or]).all()
-
-
-@pytest.mark.slow
-def test_bvh_megakernel_matches_fused_bit_near():
-    """On a scene the fused engine can also render (<=32 tris), the packet
-    megakernel produces the SAME image (same PCG stream, same formulas) to
-    float tolerance."""
-    mesh = icosphere(center=(0.0, 0.3, 0.0), radius=0.6, subdivisions=0,
-                     material=0)  # 20 triangles
-    materials = make_materials(
-        [
-            dict(albedo=(0.7, 0.3, 0.3), metallic=0.0, roughness=0.5),
-            dict(albedo=(0.5, 0.5, 0.5), metallic=0.0, roughness=0.9),
-            dict(albedo=(1.0, 1.0, 1.0), emission=(5.0, 5.0, 5.0)),
-        ]
-    )
-    spheres = make_spheres(
-        [
-            ((0.0, -100.5, 0.0), 100.0, 1),
-            ((0.0, 5.0, 0.0), 1.0, 2),
-        ]
-    )
-    bvh = build_bvh_for_triangles(mesh)
-    scene = make_scene(spheres=spheres, triangles=mesh, materials=materials,
-                       bvh=bvh)
-    scene = attach_packed(scene)
-    cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
-                      aspect_ratio=128.0 / 8.0)
-
-    kw = dict(width=128, height=8, spp=2, max_depth=3, seed=7)
-    img_pk = np.asarray(
-        render_flat_bvh_megakernel(scene, cam, interpret=True, **kw)
-    )
-    img_fused = np.asarray(render_flat_fused(scene, cam, **kw))
-    assert np.isfinite(img_pk).all()
-    np.testing.assert_allclose(img_pk, img_fused, rtol=1e-4, atol=1e-5)
-
-
-@pytest.mark.slow
-def test_bvh_megakernel_mesh_scene_smoke():
-    """Full bunny-tier scene (two-level BVH, 1.4k tris) through the packet
-    megakernel in interpret mode: finite, non-trivial, sky visible."""
-    scene = create_mesh_scene(subdivisions=2)
-    scene = attach_packed(scene)
-    cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
-                      aspect_ratio=128.0 / 16.0)
-    img = np.asarray(
-        render_flat_bvh_megakernel(
-            scene, cam, width=128, height=16, spp=1, max_depth=2, seed=0,
-            interpret=True,
-        )
-    )
-    assert np.isfinite(img).all()
-    assert img.std() > 1e-3
-    assert img.max() > 0.1
-
-
-@pytest.mark.slow
-def test_packet_kernel_tile_h_invariant():
-    """Packet height is a pure blocking choice: images are BIT-identical at
-    tile_h 8/16/32 (pixel ids and PCG streams depend only on absolute
-    row/col).  tile_h=32 also exercises the int32 any-hit reduce (4096
-    lanes overflow the float bit-plane trick)."""
-    scene = create_mesh_scene(subdivisions=2)
-    scene = attach_packed(scene)
-    cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
-                      aspect_ratio=128.0 / 48.0)
-    kw = dict(width=128, height=48, spp=1, max_depth=2, seed=5,
-              interpret=True)
-    base = np.asarray(render_flat_bvh_megakernel(scene, cam, tile_h=8, **kw))
-    for th in (16, 32):
-        img = np.asarray(
-            render_flat_bvh_megakernel(scene, cam, tile_h=th, **kw)
-        )
-        np.testing.assert_array_equal(base, img)
-
-
-@pytest.mark.slow
-def test_batched_pops_match_single_pop_on_deep_tree():
-    """The auto-enabled pops_per_iter=8 path (dummy-record batch pops,
-    bitmask OR-tree readback, reversed push ordering) against K=1 and the
-    stack oracle on a tree big enough to trip the >=512-pair-row
-    auto-threshold — the production configuration the small suite scenes
-    never reach."""
-    rng = np.random.default_rng(11)
-    parts = [
-        icosphere(center=c, radius=r, subdivisions=3, material=i % 2)
-        for i, (c, r) in enumerate(
-            [((-1.2, 0.0, 0.0), 0.5), ((1.2, 0.2, -0.4), 0.6),
-             ((0.0, -0.6, 0.8), 0.45), ((0.3, 0.9, -1.0), 0.55)]
-        )
-    ]
-    bvh, tris = build_two_level(parts, leaf_size=4)
-    packed = pack_bvh(bvh, tris)
-    assert packed.pairs.shape[0] >= 512  # the auto-K threshold is exercised
-
-    origins, dirs = _random_rays(1024, seed=9, spread=2.0)
-    t1, n1, m1 = intersect_tile(packed, origins, dirs, interpret=True,
-                                pops_per_iter=1)
-    t8, n8, m8 = intersect_tile(packed, origins, dirs, interpret=True,
-                                pops_per_iter=8)
-    np.testing.assert_array_equal(np.asarray(t1), np.asarray(t8))
-    np.testing.assert_array_equal(np.asarray(n1), np.asarray(n8))
-    np.testing.assert_array_equal(np.asarray(m1), np.asarray(m8))
-
-    hit_oracle = intersect_bvh_stack(
-        bvh, tris, jnp.asarray(origins), jnp.asarray(dirs)
-    )
-    hit_or = np.asarray(hit_oracle.hit)
-    t8 = np.asarray(t8)
-    assert ((t8 >= 1e19) == ~hit_or).all()
-    np.testing.assert_allclose(
-        t8[hit_or], np.asarray(hit_oracle.t)[hit_or], rtol=1e-4, atol=1e-5
-    )
-
-
-def test_full_lane_hit_decodes_exactly():
-    """Regression for the any-hit decode boundary: when EVERY lane of the
-    packet hits one child and none hit the other, both decode paths must
-    report (True, False) — count0 == n_lanes previously aliased into
-    count1 in the float bit-plane decode at n_lanes == 2048."""
-    mesh = icosphere(center=(0.0, 0.0, 0.0), radius=1.0, subdivisions=2,
-                     material=0)
-    bvh = build_bvh_for_triangles(mesh, leaf_size=4)
-    packed = pack_bvh(bvh, mesh)
-    for tile_h in (8, 16):
-        n = tile_h * 128
-        # every ray aimed straight at the sphere center -> all lanes hit
-        origins = np.tile(np.array([[0.0, 0.0, 3.0]], np.float32), (n, 1))
-        dirs = np.tile(np.array([[0.0, 0.0, -1.0]], np.float32), (n, 1))
-        t, _, mid = intersect_tile(packed, origins, dirs, interpret=True,
-                                   tile_h=tile_h)
-        t = np.asarray(t)
-        assert (t < 1e19).all(), f"tile_h={tile_h}: lanes lost hits"
-        np.testing.assert_allclose(t, t[0], rtol=1e-5)
-
-
-@pytest.mark.slow
-def test_mxu_leaf_engine_matches_packet_engine():
-    """The MXU superleaf-leaf variant (pair tree over 128-tri Plücker
-    blocks, `mxu_leaf=True`) against the row-leaf packet engine: same
-    raygen, RNG stream and traversal order — images agree to float32
-    round-off (the leaf intersector arithmetic differs: Plücker MXU
-    contraction vs broadcast Möller–Trumbore)."""
-    from spira_tpu.accel.mxu import attach_superleaf
-
-    scene = attach_packed(create_mesh_scene(subdivisions=2))
-    cam = default_camera(128 / 32)
-    kw = dict(width=128, height=32, spp=4, max_depth=3, seed=1)
-    img_ref = np.asarray(
-        render_flat_bvh_megakernel(scene, cam, interpret=True, **kw)
-    )
-    img_mxu = np.asarray(
-        render_flat_bvh_megakernel(
-            attach_superleaf(scene), cam, interpret=True, mxu_leaf=True, **kw
-        )
-    )
-    assert np.isfinite(img_mxu).all()
-    np.testing.assert_allclose(img_mxu, img_ref, atol=1e-4)
-
-
-def test_leaf_broadcast_matmul_bitwise_matches_extract():
-    """The A/B'd constant-broadcast strategies (scalar lane extracts vs
-    the MXU outer-product transpose; see the leaf-visit comment in
-    bvh_megakernel.py) must stay BIT-identical — the matmul path
-    reconstructs each fp32 constant exactly via x*1.0 at
-    Precision.HIGHEST.  Measured on v5e: matmul is 17-20% slower, so
-    "extract" is the default; this pins the equivalence so the loser
-    stays a valid A/B baseline."""
-    scene = attach_packed(create_mesh_scene(subdivisions=1))
-    cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
-                      aspect_ratio=128.0 / 8.0)
-    kw = dict(width=128, height=8, spp=2, max_depth=3, seed=11,
-              interpret=True)
-    a = np.asarray(render_flat_bvh_megakernel(
-        scene, cam, leaf_broadcast="extract", **kw))
-    b = np.asarray(render_flat_bvh_megakernel(
-        scene, cam, leaf_broadcast="matmul", **kw))
-    np.testing.assert_array_equal(a, b)
-
-
-def test_leaf_gate_bitwise_matches_ungated():
-    """Sub-packet leaf gating (per-(8,128)-block pl.when on block any-hit)
-    must be a pure scheduling choice: inactive blocks would be no-op
-    updates anyway, so gated and ungated renders are BIT-identical.
-    Measured on v5e: gating is 25% SLOWER (Mosaic scalar branches cost
-    ~100 cycles each), so leaf_gate=False is the default; the flag stays
-    as a measured negative (see ARCHITECTURE)."""
-    scene = attach_packed(create_mesh_scene(subdivisions=1))
-    cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
-                      aspect_ratio=128.0 / 8.0)
-    kw = dict(width=128, height=8, spp=2, max_depth=3, seed=13,
-              interpret=True, tile_h=16)
-    a = np.asarray(render_flat_bvh_megakernel(
-        scene, cam, leaf_gate=False, **kw))
-    b = np.asarray(render_flat_bvh_megakernel(
-        scene, cam, leaf_gate=True, **kw))
-    np.testing.assert_array_equal(a, b)
-
-
 def test_bw_operands_match_mt_barycentrics():
     """The Baldwin-Weber packing (pairs._bw_operands) must reproduce
     Moller-Trumbore's (t, u, v) for arbitrary triangles and rays: the two
@@ -360,76 +111,3 @@ def test_bw_operands_match_mt_barycentrics():
                        rtol=1e-3)
     assert np.allclose(u_bw[ok], u_mt[ok], atol=2e-3, rtol=2e-3)
     assert np.allclose(v_bw[ok], v_mt[ok], atol=2e-3, rtol=2e-3)
-
-
-def test_bw_and_mt_forms_agree_through_kernel():
-    """End-to-end: the interpret-mode packet kernel returns the same hits
-    for both leaf forms on a real mesh (winner slots, normals, mats)."""
-    tris = icosphere(center=(0.0, 0.0, -1.0), radius=0.5, subdivisions=2,
-                     material=0)
-    bvh = build_bvh_for_triangles(tris)
-    origins, dirs = _random_rays(1024, seed=3)
-    res = {}
-    for form in ("mt", "bw"):
-        packed = pack_bvh(bvh, tris, form=form)
-        res[form] = intersect_tile(packed, origins, dirs, interpret=True,
-                                   tile_h=8)
-    t_mt, n_mt, m_mt = (np.asarray(x) for x in res["mt"])
-    t_bw, n_bw, m_bw = (np.asarray(x) for x in res["bw"])
-    hit_mt = t_mt < 1e19
-    hit_bw = t_bw < 1e19
-    assert (hit_mt == hit_bw).all()
-    assert np.allclose(t_mt[hit_mt], t_bw[hit_bw], atol=1e-4, rtol=1e-5)
-    assert (m_mt[hit_mt] == m_bw[hit_bw]).all()
-    assert np.allclose(n_mt[hit_mt], n_bw[hit_bw], atol=1e-6)
-
-
-def test_quad_records_bitwise_match_pairs():
-    """BVH2→BVH4 collapse (PackedBVH.fanout=4): quad-record traversal
-    renders bit-identically to pair records (traversal order cannot change
-    the nearest hit) at every pop batch width."""
-    import numpy as np
-
-    import spira_tpu as st
-    from spira_tpu.accel.pairs import attach_packed, traverse_packed_numpy
-    from spira_tpu.kernels.bvh_megakernel import (
-        intersect_tile,
-        render_flat_bvh_megakernel,
-    )
-    from spira_tpu.scene.scene import create_mesh_scene
-
-    base = create_mesh_scene(subdivisions=2)
-    s2 = attach_packed(base)
-    s4 = attach_packed(base, fanout=4)
-    assert s4.packed.fanout == 4
-    assert s4.packed.depth <= (s2.packed.depth + 1) // 2 + 1
-
-    rng = np.random.default_rng(3)
-    n = 8 * 128
-    o = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
-    o[::2] = rng.uniform(-0.6, 0.6, (n // 2, 3))
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    t2, _, m2 = intersect_tile(s2.packed, o, d, interpret=True, tile_h=8,
-                               pops_per_iter=4)
-    for K in (1, 8):
-        t4, _, m4 = intersect_tile(s4.packed, o, d, interpret=True,
-                                   tile_h=8, pops_per_iter=K)
-        np.testing.assert_allclose(np.asarray(t2), np.asarray(t4),
-                                   rtol=1e-6)
-        np.testing.assert_array_equal(np.asarray(m2), np.asarray(m4))
-
-    cam = st.default_camera(1.0)
-    kw = dict(width=128, height=16, spp=2, max_depth=3, interpret=True,
-              tile_h=8, pops_per_iter=4)
-    a = render_flat_bvh_megakernel(s2, cam, **kw)
-    b = render_flat_bvh_megakernel(s4, cam, **kw)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    # oracle agreement on the quad layout
-    for i in range(8):
-        ta = traverse_packed_numpy(s2.packed, o[i], d[i])
-        tb = traverse_packed_numpy(s4.packed, o[i], d[i])
-        fa = ta[0] if np.isfinite(ta[0]) else -1.0
-        fb = tb[0] if np.isfinite(tb[0]) else -1.0
-        assert abs(fa - fb) < 1e-5

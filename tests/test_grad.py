@@ -478,28 +478,21 @@ def test_shading_normal_gradients_flow_through_bvh_render():
 @pytest.mark.slow
 def test_hybrid_mesh_grad_forward_is_packet_backward_is_wavefront():
     """The mesh hybrid (`render_flat_hybrid_grad_mesh`): forward value is
-    exactly the packet-BVH Pallas render; its custom_vjp gradient is
-    exactly the wavefront replay's gradient (independent-stream unbiased
-    estimator of the expected-loss gradient)."""
-    from spira_tpu.accel.pairs import attach_packed
-    from spira_tpu.kernels.bvh_megakernel import render_flat_bvh_megakernel
+    exactly the wavefront render; at ``grad_spp == spp`` its custom_vjp
+    gradient is exactly the wavefront replay's gradient."""
     from spira_tpu.render import render_flat, render_flat_hybrid_grad_mesh
     from spira_tpu.scene.camera import make_camera
     from spira_tpu.scene.scene import create_mesh_scene
 
-    scene = attach_packed(create_mesh_scene(subdivisions=1))
+    scene = create_mesh_scene(subdivisions=1)
     cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
                       aspect_ratio=128.0 / 16.0)
     kw = dict(width=128, height=16, spp=2, max_depth=2, seed=3)
 
-    # forward: bit-identical to the packet engine
-    val = np.asarray(render_flat_hybrid_grad_mesh(
-        scene, cam, engine="pallas_bvh_interpret", **kw))
-    direct = np.asarray(render_flat_bvh_megakernel(
-        scene, cam, interpret=True, **kw))
+    val = np.asarray(render_flat_hybrid_grad_mesh(scene, cam, **kw))
+    direct = np.asarray(render_flat(scene, cam, **kw))
     np.testing.assert_array_equal(val, direct)
 
-    # backward: identical to grad of the wavefront replay
     from spira_tpu.core.types import replace
 
     def with_albedo(albedo):
@@ -507,8 +500,7 @@ def test_hybrid_mesh_grad_forward_is_packet_backward_is_wavefront():
                                                 albedo=albedo))
 
     def loss_hybrid(albedo):
-        img = render_flat_hybrid_grad_mesh(
-            with_albedo(albedo), cam, engine="pallas_bvh_interpret", **kw)
+        img = render_flat_hybrid_grad_mesh(with_albedo(albedo), cam, **kw)
         return jnp.mean(img)
 
     def loss_replay(albedo):
@@ -523,77 +515,14 @@ def test_hybrid_mesh_grad_forward_is_packet_backward_is_wavefront():
     np.testing.assert_allclose(gh, gr, rtol=1e-6)
 
 
-def test_packet_backward_matches_wavefront_backward_bitwise():
-    """The differentiable packet intersect hook
-    (`make_sorted_tile_intersect(grad=True)`) — the mesh hybrid's TPU
-    backward — produces BITWISE-identical gradients to the stackless
-    wavefront replay: same threefry streams, same winner, same
-    differentiable hit recompute; only the traversal implementation
-    differs (stop-gradient Pallas kernel vs stop-gradient XLA
-    while_loop).  Round-4 regression guard: the stackless walk faults
-    the real chip on mesh scenes, so the packet hook is the backward
-    actually measured on hardware."""
-    from spira_tpu.accel.bvh import build_bvh
-    from spira_tpu.accel.pairs import attach_packed
-    from spira_tpu.core.types import replace as dc_replace
-    from spira_tpu.render import render_flat, render_flat_hybrid_grad_mesh
-    from spira_tpu.scene.camera import make_camera
-    from spira_tpu.scene.geometry import triangle_bounds
-    from spira_tpu.scene.scene import create_mesh_scene
-
-    # leaf<=4 rebuild: the wavefront side's compile scales with
-    # (chunk x leaf unroll) — same budget trick as the fast FD test
-    scene = create_mesh_scene(subdivisions=0)
-    lo, hi = triangle_bounds(scene.triangles)
-    scene = attach_packed(dc_replace(
-        scene, bvh=build_bvh(np.asarray(lo), np.asarray(hi), leaf_size=4)
-    ))
-    cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
-                      aspect_ratio=48.0 / 8.0)
-    kw = dict(width=48, height=8, spp=1, max_depth=2, seed=3)
-
-    # linear loss: the custom_vjp cotangent is constant, so the hybrid's
-    # backward must equal the wavefront grad exactly (a nonlinear loss
-    # would mix in the forward image, which uses a different RNG family)
-    def loss_packet(albedo, origin):
-        sc = dc_replace(scene,
-                        materials=dc_replace(scene.materials, albedo=albedo))
-        c = dc_replace(cam, origin=origin)
-        img = render_flat_hybrid_grad_mesh(
-            sc, c, engine="pallas_bvh_interpret", bwd="packet_interpret",
-            **kw)
-        return jnp.mean(img)
-
-    def loss_wavefront(albedo, origin):
-        sc = dc_replace(scene,
-                        materials=dc_replace(scene.materials, albedo=albedo))
-        c = dc_replace(cam, origin=origin)
-        img = render_flat(sc, c, semantics="physical", **kw)
-        return jnp.mean(img)
-
-    a0, o0 = scene.materials.albedo, cam.origin
-    gp = jax.grad(loss_packet, argnums=(0, 1))(a0, o0)
-    gw = jax.grad(loss_wavefront, argnums=(0, 1))(a0, o0)
-    ga_p, go_p = np.asarray(gp[0]), np.asarray(gp[1])
-    ga_w, go_w = np.asarray(gw[0]), np.asarray(gw[1])
-    assert np.abs(ga_p).max() > 0 and np.abs(go_p).max() > 0
-    np.testing.assert_array_equal(ga_p, ga_w)
-    np.testing.assert_array_equal(go_p, go_w)
-
-
 def test_spectral_mesh_hybrid_forward_and_spd_gradients():
     """The SPECTRAL mesh hybrid (`render_flat_hybrid_grad_mesh(spectral=
-    True)`): forward is bitwise the spectral packet kernel; its backward
-    (spectral replay through the differentiable packet hook) matches the
-    spectral wavefront replay's albedo-SPD gradient (linear loss -> the
-    custom_vjp cotangent is constant).  BASELINE configs 2+3+4 combined —
-    round-4 deliverable (VERDICT r3 item 4)."""
+    True)`): forward is bitwise the spectral wavefront render; its backward
+    matches the spectral wavefront replay's albedo-SPD gradient (linear
+    loss -> the custom_vjp cotangent is constant).  BASELINE configs 2+3+4
+    combined (VERDICT r3 item 4)."""
     from spira_tpu.accel.bvh import build_bvh
-    from spira_tpu.accel.pairs import attach_packed
     from spira_tpu.core.types import replace as dc_replace
-    from spira_tpu.kernels.spectral_bvh import (
-        render_flat_spectral_bvh_megakernel,
-    )
     from spira_tpu.render import render_flat, render_flat_hybrid_grad_mesh
     from spira_tpu.scene.camera import make_camera
     from spira_tpu.scene.geometry import triangle_bounds
@@ -601,26 +530,23 @@ def test_spectral_mesh_hybrid_forward_and_spd_gradients():
 
     scene = create_mesh_scene(subdivisions=0)
     lo, hi = triangle_bounds(scene.triangles)
-    scene = attach_packed(dc_replace(
+    scene = dc_replace(
         scene, bvh=build_bvh(np.asarray(lo), np.asarray(hi), leaf_size=4)
-    ))
+    )
     cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
                       aspect_ratio=48.0 / 8.0)
     kw = dict(width=48, height=8, spp=1, max_depth=2, seed=3)
 
     v_hybrid = np.asarray(render_flat_hybrid_grad_mesh(
-        scene, cam, engine="pallas_bvh_interpret", bwd="packet_interpret",
-        spectral=True, **kw))
-    v_direct = np.asarray(render_flat_spectral_bvh_megakernel(
-        scene, cam, interpret=True, **kw))
+        scene, cam, spectral=True, **kw))
+    v_direct = np.asarray(render_flat(scene, cam, spectral=True, **kw))
     np.testing.assert_array_equal(v_hybrid, v_direct)
 
     def loss_h(spd):
         sc = dc_replace(scene, materials=dc_replace(
             scene.materials, albedo_spd=spd))
         return jnp.mean(render_flat_hybrid_grad_mesh(
-            sc, cam, engine="pallas_bvh_interpret", bwd="packet_interpret",
-            spectral=True, **kw))
+            sc, cam, spectral=True, **kw))
 
     def loss_w(spd):
         sc = dc_replace(scene, materials=dc_replace(

@@ -1,13 +1,26 @@
-"""Pallas megakernel tests (interpret mode on CPU; hardware path exercised
-by bench.py on the real chip)."""
+"""Megakernel tests: the Triton-route Pallas kernel in interpret mode
+against its fused-XLA twin, the launcher's padding, and engine dispatch.
+`chip_smoke.py` runs the compiled kernel on the card."""
 
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
+
 import spira_tpu as st
 from spira_tpu.core import pcg
-from spira_tpu.kernels.megakernel import render_flat_megakernel
-from spira_tpu.render import render_flat
+from spira_tpu.kernels import megakernel as mk
+from spira_tpu.kernels.megakernel import (
+    render_flat_fused,
+    render_flat_megakernel,
+)
+from spira_tpu.render import (
+    ENGINE_TABLE,
+    engine_row,
+    render_flat,
+    render_flat_engine,
+    select_engine,
+)
 
 
 def test_pcg4d_uniformity_and_determinism():
@@ -210,8 +223,6 @@ def test_fused_gradients_match_finite_differences():
 
 
 def test_engine_dispatch():
-    from spira_tpu.render import select_engine
-
     sphere_scene = st.create_scene()
     mesh_scene = st.create_mesh_scene(subdivisions=1)
     # CPU backend in tests → fused (not pallas)
@@ -221,27 +232,51 @@ def test_engine_dispatch():
     assert select_engine(sphere_scene, "physical", True) == "fused"
     assert select_engine(mesh_scene, "physical", False) == "wavefront"
     assert select_engine(sphere_scene, "physical", False, "pallas") == "pallas"
+    with pytest.raises(ValueError):
+        select_engine(sphere_scene, "physical", False, "pallas_bvh")
+    # the Triton kernel is RGB-only: spectral small scenes stay fused
+    with pytest.raises(ValueError):
+        render_flat_engine(sphere_scene, st.default_camera(2.0), width=8,
+                           height=4, spp=1, spectral=True, engine="pallas")
 
 
-def test_engine_dispatch_tpu_branch(monkeypatch):
-    """The TPU-only auto choices, pinned via a backend monkeypatch: packed
-    mesh scenes take the packet kernel, spectral ones the spectral packet
-    kernel (not the wavefront fallback)."""
-    import importlib
+def test_engine_dispatch_tpu_branch():
+    """The GPU row of the engine table: small scenes take the Triton-route
+    kernel, everything else the wavefront."""
+    assert select_engine(
+        st.create_scene(), "physical", False, platform="gpu"
+    ) == ENGINE_TABLE["gpu"]["small"]
+    assert select_engine(
+        st.create_mesh_scene(subdivisions=1), "physical", False,
+        platform="gpu",
+    ) == "wavefront"
 
-    # import_module, not `import spira_tpu.render as ...`: the package's
-    # render() API function shadows the submodule under `import ... as`
-    render_mod = importlib.import_module("spira_tpu.render")
-    from spira_tpu.accel.pairs import attach_packed
-    from spira_tpu.render import select_engine
 
-    monkeypatch.setattr(render_mod.jax, "default_backend", lambda: "tpu")
-    packed = attach_packed(st.create_mesh_scene(subdivisions=1))
-    assert select_engine(packed, "physical", False) == "pallas_bvh"
-    assert select_engine(packed, "physical", True) == "pallas_spectral_bvh"
-    assert select_engine(packed, "reference", False) == "wavefront"
-    sphere_scene = st.create_scene()
-    assert select_engine(sphere_scene, "physical", False) == "pallas"
+_KINDS = {
+    # kind: (scene factory, semantics, spectral, table column)
+    "sphere": (st.create_scene, "physical", False, "small"),
+    "small_tri": (st.create_cornell_box, "physical", False, "small"),
+    "mesh": (lambda: st.create_mesh_scene(subdivisions=1), "physical", False,
+             "general"),
+    "spectral": (st.create_cornell_box, "physical", True, "small_spectral"),
+    "reference": (st.create_scene, "reference", False, "general"),
+}
+
+
+@pytest.mark.parametrize("platform", sorted(ENGINE_TABLE))
+@pytest.mark.parametrize("kind", sorted(_KINDS))
+def test_engine_table_rows(platform, kind):
+    make, semantics, spectral, column = _KINDS[kind]
+    got = select_engine(make(), semantics, spectral, platform=platform)
+    assert got == ENGINE_TABLE[platform][column]
+    assert got in ("pallas", "fused", "wavefront")
+
+
+def test_engine_table_refuses_unknown_platform():
+    with pytest.raises(ValueError, match="no engine row"):
+        engine_row("metal")
+    with pytest.raises(ValueError):
+        select_engine(st.create_scene(), "physical", False, platform="rocm")
 
 
 @pytest.mark.slow
@@ -264,8 +299,6 @@ def test_thin_lens_fused_matches_wavefront_dof():
     aperture blurs out-of-focus geometry identically (statistically) in the
     fused tracer and the wavefront engine, and defocus scenes no longer
     force the slow engine."""
-    from spira_tpu.kernels.megakernel import render_flat_fused
-    from spira_tpu.render import render_flat, select_engine
     from spira_tpu.scene.camera import make_camera
 
     scene = st.create_scene()
@@ -275,9 +308,10 @@ def test_thin_lens_fused_matches_wavefront_dof():
     )
     assert cam.has_lens
     # dispatch: lens cameras stay on the fast engines now
-    assert select_engine(scene, "physical", False, "auto", camera=cam) in (
-        "fused", "pallas"
-    )
+    for platform in ENGINE_TABLE:
+        assert select_engine(scene, "physical", False, platform=platform) in (
+            "fused", "pallas"
+        )
 
     kw = dict(width=64, height=32, spp=24, max_depth=3)
     fz = np.asarray(render_flat_fused(scene, cam, seed=0, **kw))
@@ -299,11 +333,74 @@ def test_pinhole_raygen_unchanged_by_lens_support():
     """lens support must not perturb pinhole streams: has_lens=False uses
     the exact 12-field raygen (image identical across the cam-packing
     change)."""
-    from spira_tpu.kernels.megakernel import render_flat_fused
-
     scene = st.create_scene()
     cam = st.default_camera(2.0)
     assert not cam.has_lens
     img = np.asarray(render_flat_fused(scene, cam, width=32, height=16,
                                        spp=2, max_depth=2, seed=11))
     assert np.isfinite(img).all() and img.std() > 1e-3
+
+
+# ----------------------------------------------------------------------------
+# The Triton-route kernel (interpret mode) against its fused-XLA twin
+# ----------------------------------------------------------------------------
+
+
+def _lens_camera(aspect):
+    return st.make_camera(
+        lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
+        aspect_ratio=aspect, aperture=0.4, focus_dist=3.2,
+    )
+
+
+_KERNEL_CASES = {
+    # case: (scene factory, camera factory)
+    "demo_spheres": (st.create_scene, st.default_camera),
+    "cornell_triangles": (st.create_cornell_box, st.cornell_camera),
+    "thin_lens": (st.create_scene, _lens_camera),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_KERNEL_CASES))
+def test_triton_kernel_matches_fused_twin(case):
+    """Same tracer, same PCG stream, same pixel ids: the kernel and the
+    fused twin agree to float rounding (the two compile the arithmetic
+    separately, so a contracted multiply-add may differ in the last bit)."""
+    make_scene, make_camera = _KERNEL_CASES[case]
+    w, h = 32, 8
+    kw = dict(width=w, height=h, spp=2, max_depth=2, seed=4)
+    scene, cam = make_scene(), make_camera(w / h)
+    got = np.asarray(render_flat_megakernel(scene, cam, interpret=True, **kw))
+    want = np.asarray(render_flat_fused(scene, cam, **kw))
+    assert got.shape == want.shape == (w * h, 3)
+    assert np.isfinite(got).all() and want.std() > 1e-3
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_triton_kernel_pads_and_crops_partial_blocks():
+    """An image whose pixel count is not a multiple of the block: the tail
+    block is padding, cropped away, and the visible pixels match."""
+    w, h = 37, 11
+    assert (w * h) % mk.BLOCK
+    scene = st.create_scene()
+    cam = st.default_camera(w / h)
+    kw = dict(width=w, height=h, spp=2, max_depth=2, seed=9)
+    got = np.asarray(render_flat_megakernel(scene, cam, interpret=True, **kw))
+    want = np.asarray(render_flat_fused(scene, cam, **kw))
+    assert got.shape == (w * h, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "shape, padded",
+    [((4, 14), (4, 16)), ((5, 14), (8, 16)), ((0, 22), (1, 32)),
+     ((12, 41), (16, 64))],
+)
+def test_pad_table_powers_of_two(shape, padded):
+    """The Triton route loads only power-of-two shapes: the launcher pads
+    every scene table with zero rows and columns, keeping the data."""
+    table = jnp.arange(int(np.prod(shape)), dtype=jnp.float32).reshape(shape)
+    out = np.asarray(mk.pad_table(table))
+    assert out.shape == padded
+    np.testing.assert_array_equal(out[: shape[0], : shape[1]], table)
+    assert not out[shape[0]:].any() and not out[:, shape[1]:].any()

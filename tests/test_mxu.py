@@ -1,10 +1,9 @@
 """MXU superleaf packing (`accel/mxu.py`): coefficient + traversal
 equivalence.
 
-The NumPy oracle evaluates the PACKED Plücker tables (the same contraction
-the TPU kernel runs), differentially tested against brute-force
-Möller–Trumbore — coefficient-sign or bin-packing bugs fail here before any
-TPU compile."""
+The NumPy oracle evaluates the PACKED Plücker tables, differentially
+tested against brute-force Möller–Trumbore — coefficient-sign or
+bin-packing bugs fail here."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -235,24 +235,3 @@ def test_cli_presets_map_to_reference_tiers():
     # no preset, no flags -> demo defaults
     cfg = config_from_args(p.parse_args([]))
     assert (cfg.width, cfg.height, cfg.spp, cfg.max_depth) == (640, 360, 32, 4)
-
-
-def test_build_scene_packs_for_every_packet_engine():
-    """Every engine that feeds the packet traversal gets pair tables at
-    build time (regression: bvh_sorted / pallas_spectral_bvh / auto-spectral
-    mesh scenes previously arrived unpacked and raised at render time)."""
-    from spira_tpu.utils.config import RenderConfig, build_scene
-
-    for engine, spectral in [
-        ("bvh_sorted", False),
-        ("pallas_spectral_bvh", True),
-        ("auto", True),  # auto spectral mesh -> pallas_spectral_bvh on TPU
-        ("pallas_bvh", False),
-    ]:
-        scene, _ = build_scene(
-            RenderConfig(scene="mesh", engine=engine, spectral=spectral)
-        )
-        assert scene.packed is not None, engine
-    # wavefront-family drivers skip the (unused) tables
-    scene, _ = build_scene(RenderConfig(scene="mesh", engine="wavefront"))
-    assert scene.packed is None

@@ -93,66 +93,6 @@ def test_entry_compiles():
     # driver's job and takes ~30 s at 640x360
 
 
-@pytest.mark.slow
-def test_packet_bvh_sharded_matches_single_device_bitwise():
-    """Multi-chip MESH rendering on the packet-BVH engine (bvh_rows shard
-    body): tile-sharding a packed mesh scene over 4 devices reproduces the
-    single-device packet render BIT-identically (PCG counters key on
-    absolute pixel ids; spp axis of 1 adds no reduction)."""
-    from spira_tpu.accel.pairs import attach_packed
-    from spira_tpu.kernels.bvh_megakernel import render_flat_bvh_megakernel
-    from spira_tpu.parallel.sharded import render_flat_sharded
-    from spira_tpu.scene.camera import make_camera
-    from spira_tpu.scene.scene import create_mesh_scene
-
-    scene = attach_packed(create_mesh_scene(subdivisions=1))
-    cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
-                      aspect_ratio=128.0 / 32.0)
-    kw = dict(width=128, height=32, spp=2, max_depth=2, seed=5)
-
-    single = np.asarray(
-        render_flat_bvh_megakernel(scene, cam, interpret=True, tile_h=8,
-                                   **kw)
-    )
-    mesh = make_mesh(n_tile=4, n_spp=1)
-    sharded = np.asarray(
-        render_flat_sharded(
-            scene, cam, mesh=mesh, engine="pallas_bvh_interpret", **kw
-        )
-    )
-    np.testing.assert_array_equal(single, sharded)
-
-
-@pytest.mark.slow
-def test_mxu_leaf_sharded_matches_single_device_bitwise():
-    """The MXU-superleaf packet engine under the tile-sharded renderer
-    (engine='pallas_bvh_mxu_interpret'): bit-identical to its own
-    single-device render."""
-    from spira_tpu.accel.mxu import attach_superleaf
-    from spira_tpu.accel.pairs import attach_packed
-    from spira_tpu.kernels.bvh_megakernel import render_flat_bvh_megakernel
-    from spira_tpu.parallel.sharded import render_flat_sharded
-    from spira_tpu.scene.camera import make_camera
-    from spira_tpu.scene.scene import create_mesh_scene
-
-    scene = attach_superleaf(attach_packed(create_mesh_scene(subdivisions=1)))
-    cam = make_camera(lookfrom=(0.0, 1.0, 3.0), lookat=(0.0, 0.0, 0.0),
-                      aspect_ratio=128.0 / 32.0)
-    kw = dict(width=128, height=32, spp=2, max_depth=2, seed=5)
-
-    single = np.asarray(
-        render_flat_bvh_megakernel(scene, cam, interpret=True, tile_h=8,
-                                   mxu_leaf=True, **kw)
-    )
-    mesh = make_mesh(n_tile=4, n_spp=1)
-    sharded = np.asarray(
-        render_flat_sharded(
-            scene, cam, mesh=mesh, engine="pallas_bvh_mxu_interpret", **kw
-        )
-    )
-    np.testing.assert_array_equal(single, sharded)
-
-
 def test_adaptive_sharded_matches_single_device_statistically(scene_cam):
     """render_adaptive over a (tile, spp) mesh: the row-set dispatch
     shards rows over tile and samples over spp; the result agrees with

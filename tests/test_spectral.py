@@ -244,23 +244,3 @@ def test_fused_spectral_spd_gradients():
     g = np.asarray(jax.grad(loss)(scene.materials.albedo_spd))
     assert np.isfinite(g).all()
     assert np.abs(g).max() > 0
-
-
-@pytest.mark.slow
-def test_pallas_spectral_matches_fused():
-    """The Pallas spectral megakernel wraps the exact fused tracer (same PCG
-    stream) — images match to float tolerance (interpret mode on CPU)."""
-    from spira_tpu.kernels.spectral_fused import (
-        render_flat_fused_spectral,
-        render_flat_spectral_megakernel,
-    )
-
-    scene = st.create_scene()
-    cam = st.default_camera(2.0)
-    kw = dict(width=32, height=16, spp=4, max_depth=3, seed=3)
-    fz = np.asarray(render_flat_fused_spectral(scene, cam, **kw))
-    pk = np.asarray(
-        render_flat_spectral_megakernel(scene, cam, **kw, interpret=True)
-    )
-    assert pk.shape == fz.shape
-    np.testing.assert_allclose(pk, fz, rtol=2e-4, atol=2e-5)
